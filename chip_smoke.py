@@ -4,21 +4,31 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
-`build/kernels/`), then runs four phases, each printing one JSON line:
+`build/kernels/`), then runs six phases, each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
-     path's shapes (Neumann rtol 1e-5, bf16 operands 2e-2, min-plus and
-     its argmin bitwise), with CUDA-event times, the plain version's time,
-     a PyTorch-call yardstick where one exists, and the card's bound;
+     paths' shapes (Neumann rtol 1e-5, bf16 operands 2e-2, min-plus and
+     its argmin bitwise, flash attention 1e-4 in fp32 and 2e-2 in bf16,
+     fully masked rows exactly 0), with CUDA-event times, the plain
+     version's time, a PyTorch-call yardstick where one computes the same
+     function, and the card's bound;
   2. the paper's four scenarios through `compare_all` on the card, with
      `iot` and `geant` also solved on the CPU and compared, and the paper's
      claims checked;
   3. `engine_solve` on 64 stacked `random_connected(256, 32)` instances
      (the batched engine at realistic scale), with the per-round split of
      placement / forwarding / round_eval;
-  4. one large instance, `solve_alt(random_connected(1024, 4))`.
+  4. one large instance, `solve_alt(random_connected(1024, 4))`;
+  5. the serve loop on qwen1.5-0.5b at full width and depth (bf16
+     parameters, random weights from a seed): 16 requests of 1024 prompt
+     tokens, 8 slots, 64 new tokens each, with prefill and decode times,
+     a profile of the device time, and two checks of the numbers
+     (prefill-then-decode against the full forward; the card against the
+     CPU on the same weights);
+  6. the data plane: the same model split at layer 12, partition 1's
+     activation fed to partition 2, against the monolithic logits.
 
-Kernel launches are counted only while the main path runs (phases 2-4);
+Kernel launches are counted only while the main paths run (phases 2-6);
 every kernel must have launched there. Any failed check raises, so the
 script exits non-zero. It exits non-zero without a GPU or without the
 repository's `src/repro_torch` beside it. The last line is
@@ -26,6 +36,7 @@ repository's `src/repro_torch` beside it. The last line is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -38,9 +49,12 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bound column.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # CUDA cores, an FMA counted as two operations
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
 
 NEUMANN_RTOL = 1e-5  # same algorithm, different fp32 summation order
 BF16_TOL = 2e-2  # bf16 operands vs the fp32 plain version
+FLASH_FP32_TOL = 1e-4  # max abs error: same fp32 softmax, other summation order
+FLASH_BF16_TOL = 2e-2  # output rounded to bf16 after that arithmetic (test_flash_dtypes)
 
 
 def emit(obj) -> None:
@@ -108,42 +122,6 @@ def neumann_hops_used(w, b, hops, tol, transpose):
         if bool(done.all()):
             break
     return int(used.sum())
-
-
-def profile_round(fn, wall_ms: float) -> dict:
-    """Device time of `fn()` by kernel family under torch.profiler, and the
-    device's idle share of `wall_ms` (the same work timed without the
-    profiler). Only device-side kernel events are summed: CPU operator
-    ranges also carry their children's device time. Reports "not measured"
-    if the profiler records no device time on this machine."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    fam = {"neumann": 0.0, "minplus": 0.0, "other": 0.0}
-    top = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        if dev_ms <= 0:
-            continue
-        name = e.key
-        key = "neumann" if "neumann_kernel" in name else "minplus" if "minplus_kernel" in name else "other"
-        fam[key] += dev_ms
-        top.append((dev_ms, name[:90], e.count))
-    busy = sum(fam.values())
-    if busy <= 0:
-        return {"device_ms": "not measured", "wall_ms": wall_ms}
-    top.sort(reverse=True)
-    return {
-        "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
-        "device_ms_by_family": fam,
-        "top_kernels": [{"ms": t, "name": n, "calls": c} for t, n, c in top[:10]],
-    }
 
 
 def phase1(scen, build, stacked256):
@@ -278,6 +256,86 @@ def phase1(scen, build, stacked256):
     return summary
 
 
+def flash_live_entries(sq, sk, causal, window, q_offset) -> int:
+    """Unmasked (query, key) pairs of one (batch, head): the work the
+    kernel must do for these inputs."""
+    import torch
+
+    qp = q_offset + torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return int(mask.sum())
+
+
+def phase1_flash():
+    """The flash-attention kernel vs its plain version (the streaming
+    recurrence `attention_chunked`, which shares the kernel's treatment of
+    rows that see no key), at the serve prefill shape and the edge cases."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_chunked, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (tag, B, H, Kv, Sq, Sk, D, causal, window, q_offset, dtype, model layout)
+    cases = [
+        ("serve prefill", 8, 16, 16, 1024, 1024, 64, True, None, 0, bf16, True),
+        ("MQA D=256", 1, 8, 1, 2048, 2048, 256, True, None, 0, bf16, True),
+        ("GQA 4:1 window 128 q_offset", 1, 8, 2, 256, 512, 64, True, 128, 256, fp32, False),
+        ("non-multiple S=100", 2, 4, 2, 100, 100, 64, True, None, 0, fp32, False),
+        ("bidirectional", 1, 4, 4, 512, 512, 64, False, None, 0, fp32, True),
+        ("fully masked q_offset=-100", 1, 2, 2, 8, 8, 64, True, None, -100, fp32, False),
+    ]
+    rows = []
+    for tag, b, h, kv, sq, sk, d, causal, window, q_offset, dt, model_layout in cases:
+        def make(heads, s):
+            if model_layout:  # the model's transposed [B, S, H, D] view
+                return torch.randn(b, s, heads, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+            return torch.randn(b, heads, s, d, generator=gen, device="cuda").to(dt)
+
+        q, k, v = make(h, sq), make(kv, sk), make(kv, sk)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = attention_chunked(q, k, v, **kw)
+        if got.dtype != dt or got.shape != q.shape or got.stride() != q.stride():
+            raise AssertionError(f"flash {tag}: output {got.dtype} {tuple(got.stride())}")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FLASH_BF16_TOL if dt == bf16 else FLASH_FP32_TOL
+        if not err <= tol:
+            raise AssertionError(f"flash {tag}: max abs error {err} > {tol}")
+        if q_offset < -sq and not bool((got == 0).all()):
+            raise AssertionError(f"flash {tag}: fully masked rows are not exactly 0")
+        live = flash_live_entries(sq, sk, causal, window, q_offset) * b * h
+        esize = q.element_size()
+        bytes_ = (2 * q.numel() + k.numel() + v.numel()) * esize  # q, k, v read once, o written once
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, 4 * d * live / (BF16_OPS_PER_S if dt == bf16 else FP32_OPS_PER_S)
+        same_fn = window is None and q_offset == 0 and sq == sk
+        reps = 10 if sq >= 1024 else 20
+        rows.append({
+            "kernel": "flash_attention", "shape": f"{tag}: B={b} H={h} Kv={kv} Sq={sq} Sk={sk} D={d} "
+                                                 f"{str(dt)[6:]}{' causal' if causal else ''}",
+            "max_abs_err": err, "live_scores": live,
+            "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), reps),
+            "plain_ms": cuda_ms(lambda: attention_chunked(q, k, v, **kw), 2, 1),
+            "bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=kv != h), reps) if same_fn else None,
+        })
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": 1, "name": "flash_vs_plain", "rows": rows})
+    head = rows[0]
+    return {"flash_attention": {
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+    }}
+
+
 def phase2(scen, alt, counter):
     """The paper's scenarios through compare_all on the card (and CPU)."""
     import torch
@@ -372,7 +430,9 @@ def phase3(core, pad, counter, stacked, lane0):
         "placement_ms": ev[1].elapsed_time(ev[2]),
         "forwarding_ms": ev[2].elapsed_time(ev[3]),
     }
-    split["profile"] = profile_round(one_round, sum(split.values()))
+    split["profile"] = profile(
+        one_round, {"neumann": ("neumann_kernel",), "minplus": ("minplus_kernel",)}, sum(split.values())
+    )
     emit({
         "phase": 3, "B": 64, "V": 256, "A": 32, "K": 3, **kw,
         "rounds": out["rounds"], "wall_s": wall, "ms_per_round": 1e3 * wall / max(out["rounds"], 1),
@@ -406,6 +466,194 @@ def phase4(scen, alt, core, counter):
     })
 
 
+def profile(fn, families, wall_ms=None) -> dict:
+    """Device time of `fn()` under torch.profiler by kernel family
+    (`families`: name -> substrings of kernel names; the rest is "other"),
+    the ten largest kernels, and, given `wall_ms` (the same work timed
+    without the profiler), the device's idle share. Only device-side kernel
+    events are summed: CPU operator ranges also carry their children's
+    device time, and the device-side ranges of `obs` spans ("serve.*")
+    cover idle gaps. "not measured" if the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fam = {k: 0.0 for k in families} | {"other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("serve."):
+            continue
+        dev_ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        if dev_ms <= 0:
+            continue
+        key = next((f for f, subs in families.items() if any(x in e.key for x in subs)), "other")
+        fam[key] += dev_ms
+        top.append((dev_ms, e.key[:90], e.count))
+    busy = sum(fam.values())
+    if busy <= 0:
+        return {"device_ms": "not measured", "wall_ms": wall_ms}
+    top.sort(reverse=True)
+    out = {
+        "device_busy_ms": busy, "device_ms_by_family": fam,
+        "top_kernels": [{"ms": t, "name": n, "calls": c} for t, n, c in top[:10]],
+    }
+    if wall_ms is not None:
+        out.update(wall_ms=wall_ms, idle_share=max(0.0, 1.0 - busy / wall_ms))
+    return out
+
+
+# cuBLAS's kernels on this toolkit are named nvjet_* (GEMM) and gemv*.
+SERVE_FAMILIES = {"flash": ("flash_kernel",), "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
+
+
+def phase5(counter):
+    """The serve loop on qwen1.5-0.5b at full width and depth."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import decode_step, init_params, logits_fn, prefill
+    from repro_torch.models.model import ParamTree
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs import trace as obs_trace
+
+    cfg = serve_config(get_config("qwen1.5-0.5b"))
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    requests, slots, prompt_len, max_new, max_seq = 16, 8, 1024, 64, 2048
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, (requests, prompt_len)).astype(np.int32)
+    kw = dict(batch_slots=slots, max_new=max_new, max_seq=max_seq)
+
+    def run(n_req, new):
+        return serve(cfg, params, prompts[:n_req], **{**kw, "max_new": new}, registry=MetricsRegistry())
+
+    run(slots, 2)  # warm-up: cuBLAS handles and first launches
+    obs_trace.configure(enabled=True)
+    obs_trace.reset()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, summary = counter.run(lambda: run(requests, max_new))
+    peak = torch.cuda.max_memory_allocated()
+    launches = counter.last
+    n_prefills = sum(1 for e in obs_trace.TRACER.events() if e.name == "serve.prefill")
+    if (summary["requests"], summary["generated_tokens"], summary["decode_steps"]) != (16, 1024, 128):
+        raise AssertionError(f"phase 5: summary {summary}")
+    if launches["flash_attention"] != cfg.n_layers * n_prefills or n_prefills != 2:
+        raise AssertionError(f"phase 5: {launches['flash_attention']} flash launches, {n_prefills} prefills")
+    if not all(len(t) == max_new and all(0 <= x < cfg.vocab for x in t) for t in tokens):
+        raise AssertionError("phase 5: malformed generated tokens")
+
+    # Prefill and one decode step at the serve shapes, by CUDA events.
+    batch = {"tokens": torch.from_numpy(prompts[:slots]).cuda()}
+    with torch.inference_mode():
+        caches, _ = prefill(cfg, params, batch, max_seq)
+        step_tok = torch.zeros(slots, 1, dtype=torch.int32, device="cuda")
+        prefill_ms = cuda_ms(lambda: prefill(cfg, params, batch, max_seq), 3, 1)
+        decode_ms = cuda_ms(lambda: decode_step(cfg, params, caches, step_tok, prompt_len), 20, 2)
+        prof_prefill = profile(lambda: prefill(cfg, params, batch, max_seq), SERVE_FAMILIES)
+        prof_decode = profile(
+            lambda: [decode_step(cfg, params, caches, step_tok, prompt_len) for _ in range(4)],
+            SERVE_FAMILIES, 4 * decode_ms)
+        del caches
+    # One wave (8 requests, 16 new tokens) untimed, timed, then profiled.
+    t0 = time.perf_counter()
+    run(slots, 16)
+    torch.cuda.synchronize()
+    wave_ms = 1e3 * (time.perf_counter() - t0)
+    prof_wave = profile(lambda: run(slots, 16), SERVE_FAMILIES, wave_ms)
+    obs_trace.configure(enabled=False)
+
+    # Prefill-then-decode against the full forward at full width and depth:
+    # the prefill goes through the kernel, the decode steps through plain
+    # attention. In fp32 compute (on the bf16 weights) they agree within
+    # test_models.py's rtol 2e-3, atol 1e-2. In the serve config's bf16
+    # compute, GEMMs of other row counts round differently and 24 layers
+    # carry those roundings to the logits: held to 4 bf16 ulps of the
+    # largest logit (0.035 measured at logits up to 3.0, 2.25 such ulps).
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab, (2, 72)).astype(np.int32)).cuda()
+    consistency = {}
+    for compute in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=compute)
+        with torch.inference_mode():
+            full = logits_fn(c, params, {"tokens": toks}).float()
+            caches, last = prefill(c, params, {"tokens": toks[:, :64]}, 128)
+            pairs = [(last[:, 0].float(), full[:, 63])]
+            for pos in range(64, 71):
+                lg, caches = decode_step(c, params, caches, toks[:, pos:pos + 1], pos)
+                pairs.append((lg[:, 0].float(), full[:, pos]))
+        top = full.abs().max().item()
+        tol = dict(rtol=2e-3, atol=1e-2) if compute == "float32" else dict(
+            rtol=0.0, atol=4 * 2.0 ** (math.floor(math.log2(top)) - 7))
+        consistency[compute] = {
+            "max_abs": max((a - b).abs().max().item() for a, b in pairs), "max_logit": top, **tol}
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, **tol)
+        del full, caches
+
+    # The card against the CPU on the same weights: full width, the first
+    # 4 layers, B=1, S=256, fp32 compute.
+    cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+    p4 = ParamTree({"embed": params.embed, "final_norm": params.final_norm, "blocks": list(params.blocks)[:4]})
+    p4_cpu = copy.deepcopy(p4).to("cpu")
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, cfg.vocab, (1, 256)).astype(np.int32))
+    with torch.inference_mode():
+        gpu = logits_fn(cfg4, p4, {"tokens": toks.cuda()}).cpu()
+        cpu = logits_fn(cfg4, p4_cpu, {"tokens": toks})
+    gpu_vs_cpu = ((gpu - cpu).abs() / cpu.abs().clamp(min=1e-3)).max().item()
+    torch.testing.assert_close(gpu, cpu, rtol=1e-3, atol=1e-4)
+    del p4_cpu, gpu, cpu
+
+    emit({
+        "phase": 5, "arch": cfg.name, "params": n_params, "requests": requests, "slots": slots,
+        "prompt_len": prompt_len, "max_new": max_new, "max_seq": max_seq, "serve": {
+            k: v for k, v in summary.items() if k != "metrics"},
+        "prefills": n_prefills, "launches": launches, "peak_gb": peak / 1e9,
+        "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "profile_prefill": prof_prefill, "profile_4_decode_steps": prof_decode, "wave_8x16": prof_wave,
+        "prefill_decode_vs_forward": consistency, "gpu_vs_cpu_max_rel": gpu_vs_cpu,
+    })
+    return cfg, params
+
+
+def phase6(counter, cfg, params):
+    """The data plane: partition 1 -> stage-1 activation -> partition 2."""
+    import numpy as np
+    import torch
+    from repro_torch.models import logits_fn
+    from repro_torch.partition import run_partition, split_params
+
+    k = 12
+    toks = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab, (1, 1024)).astype(np.int32)).cuda()
+
+    def split_run():
+        with torch.inference_mode():
+            p1, p2 = split_params(cfg, params, k)
+            act = run_partition(cfg, p1, {"tokens": toks}, part=1)
+            return act, run_partition(cfg, p2, act, part=2)
+
+    t0 = time.perf_counter()
+    act, logits = counter.run(split_run)
+    wall = time.perf_counter() - t0
+    with torch.inference_mode():
+        mono = logits_fn(cfg, params, {"tokens": toks})
+    torch.testing.assert_close(logits.float(), mono.float(), rtol=2e-3, atol=2e-3)
+    if act.shape != (1, 1024, cfg.d_model) or not bool(torch.isfinite(act).all()):
+        raise AssertionError(f"phase 6: activation {tuple(act.shape)} not finite")
+    emit({
+        "phase": 6, "arch": cfg.name, "split_layer": k, "seq_len": 1024,
+        "activation_bytes": act.numel() * act.element_size(), "activation_dtype": str(act.dtype),
+        "bitwise_equal_monolithic": bool(torch.equal(logits, mono)),
+        "max_abs_vs_monolithic": (logits.float() - mono.float()).abs().max().item(),
+        "wall_s": wall, "launches": counter.last,
+    })
+
+
 def main() -> int:
     import torch
 
@@ -434,17 +682,27 @@ def main() -> int:
     stacked = pad.stack_problems(problems)
 
     summary = phase1(scen, _build, stacked)
+    summary.update(phase1_flash())
+    _build.reset_launches()
     counter = Counter(_build)
     phase2(scen, alt, counter)
     phase3(core, pad, counter, stacked, problems[0])
     phase4(scen, alt, core, counter)
+    del stacked, problems
+    torch.cuda.empty_cache()
+    cfg, params = phase5(counter)
+    phase6(counter, cfg, params)
 
-    sources = {"neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu"}
+    sources = {
+        "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",
+        "flash": "src/repro_torch/csrc/flash_attention.cu",
+    }
     replaces = {
         "neumann_cols": "src/repro/kernels/neumann/kernel.py:52",
         "neumann_rows": "src/repro/kernels/neumann/kernel.py:52",
         "minplus": "src/repro/kernels/minplus/kernel.py:36",
         "minplus_argmin": "src/repro/kernels/minplus/kernel.py:61",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:39",
     }
     kernels = []
     for name, launches in counter.total.items():

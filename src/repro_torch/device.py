@@ -33,13 +33,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def solve_device(data_device: torch.device, device: str | torch.device = "cuda") -> torch.device:
-    """The device a solve runs on: `device` (resolved as above), which must
-    be where the problem's tensors live. No tensor is moved behind the
-    caller's back: a mismatch raises ValueError."""
+    """The device a solve (or a model run) runs on: `device` (resolved as
+    above), which must be where the problem's (or the model's) tensors
+    live. No tensor is moved behind the caller's back: a mismatch raises
+    ValueError."""
     dev = resolve_device(device)
     if dev.type != data_device.type or (dev.index is not None and dev.index != data_device.index):
         raise ValueError(
-            f"repro_torch: the problem lives on {data_device} but the solve asked for "
-            f"device={str(dev)!r}; build the problem on the device you solve on"
+            f"repro_torch: the data lives on {data_device} but the call asked for "
+            f"device={str(dev)!r}; build the problem or model on the device you run on"
         )
     return data_device

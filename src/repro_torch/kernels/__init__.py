@@ -1,9 +1,12 @@
-"""Hand-written CUDA kernels of the main path, each beside its plain version.
+"""Hand-written CUDA kernels, each beside its plain version.
 
   neumann  fused batched Neumann propagation hops: every traffic and
            cost-to-go fixed point (csrc/neumann.cu)
   minplus  batched tropical (min,+) product and its fused first-minimum
            argmin: APSP squaring and the next-hop table (csrc/minplus.cu)
+  flash_attention
+           streaming-softmax attention (GQA, causal, sliding window) of the
+           model substrate's prefill and forward (csrc/flash_attention.cu)
 
 Each package ships ops.py (wrapper: CUDA tensor -> kernel, CPU tensor ->
 plain version) and ref.py (the plain PyTorch versions). `_build` compiles

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("neumann", "minplus")
+SOURCES = ("neumann", "minplus", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -34,7 +34,10 @@ NVCC_FLAGS = (
 # Launch counts of every kernel, by name. Each wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels (chip_smoke.py resets and reads these).
-LAUNCHES = {"neumann_cols": 0, "neumann_rows": 0, "minplus": 0, "minplus_argmin": 0}
+LAUNCHES = {
+    "neumann_cols": 0, "neumann_rows": 0, "minplus": 0, "minplus_argmin": 0,
+    "flash_attention": 0,
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

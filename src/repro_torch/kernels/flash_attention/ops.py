@@ -1,0 +1,82 @@
+"""Public attention op: the flash-attention kernel wrapper.
+
+`flash_attention` launches the hand-written CUDA kernel
+(csrc/flash_attention.cu) for CUDA tensors and raises if it cannot; CPU
+tensors take the plain route the JAX package takes without Pallas:
+`attention_ref`, or the streaming `attention_chunked` above
+`_CHUNKED_THRESHOLD`. There is no switch and no fallback between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import attention_chunked, attention_ref
+
+# Above this q*kv sequence product the CPU path streams over chunks (the
+# [B, H, Sq, Sk] score tensor would not fit in memory).
+_CHUNKED_THRESHOLD = 2048 * 2048
+
+_INT32_MAX = 2**31 - 1
+_MAX_Q_BLOCKS = 65535  # gridDim.y limit; the kernel takes 32 query rows a block
+
+
+def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
+    """Kernel launch for CUDA tensors; validates everything it passes on."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q/k/v {q.dtype}/{k.dtype}/{v.dtype}; one of float32, bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    kb, kv, sk, kd = k.shape
+    if kb != b or kd != d or kv == 0 or h % kv != 0:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if not 1 <= d <= 256:
+        raise ValueError(f"flash_attention: head dim {d} outside 1..256")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dim of q, k and v must be contiguous")
+    if b * h > _INT32_MAX or sq > 32 * _MAX_Q_BLOCKS or sk > _INT32_MAX:
+        raise ValueError(f"flash_attention: grid too large for shapes {tuple(q.shape)}, {tuple(k.shape)}")
+    if window is not None and not 0 <= window <= _INT32_MAX:
+        raise ValueError(f"flash_attention: window {window} outside 0..2^31-1")
+    if abs(q_offset) > _INT32_MAX // 2:
+        raise ValueError(f"flash_attention: q_offset {q_offset} out of range")
+    fn = _build.load("flash_attention").flash_attention_fwd
+    out = torch.empty_like(q)  # q's layout: a transposed [B, S, H, D] view stays one
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            b, h, kv, sq, sk, d, int(causal), int(window is not None),
+            0 if window is None else window, q_offset, 1.0 / float(d) ** 0.5,
+            int(q.dtype == torch.bfloat16), _build.stream_of(q),
+        )
+        _build.LAUNCHES["flash_attention"] += 1
+    _build.check(err, "flash_attention")
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Kv, Sk, D]
+    v: torch.Tensor,  # [B, Kv, Sk, D]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Softmax attention, q head h against kv head h // (H // Kv); the
+    output has q's shape, dtype and layout."""
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        if q.shape[2] * k.shape[2] > _CHUNKED_THRESHOLD:
+            return attention_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return _launch(q, k, v, causal, window, q_offset)

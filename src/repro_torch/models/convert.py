@@ -1,0 +1,72 @@
+"""Parameters between the JAX package's trees and the port's `ParamTree`.
+
+The JAX package keeps a model's parameters as a nested dict with the
+layers stacked on axis 0 (`params["blocks"]["attn"]["wq"]` is [L, d, H, hd]).
+`params_from_jax` takes that tree with numpy leaves (`jax.tree.map(np.asarray,
+params)`) and splits the stacked leaves into one module per layer, keeping
+every shape and dtype; `params_to_numpy` is the inverse. numpy has no
+bfloat16 of its own, so a bfloat16 leaf arrives as the 2-byte dtype named
+"bfloat16" that JAX hands out (read through its raw bits) and leaves as
+float32, which holds every bfloat16 value exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .model import ParamTree, require_dense
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cuda") -> ParamTree:
+    """The JAX package's parameter tree (numpy leaves) as the port's model."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+    out = {k: _map(v, lambda a: _leaf(a, dev)) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [
+        _map(tree["blocks"], lambda a, l=l: _leaf(np.asarray(a)[l], dev)) for l in range(cfg.n_layers)
+    ]
+    return ParamTree(out)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tree_of(module) -> dict:
+    out = {name: _to_numpy(p) for name, p in module.named_parameters(recurse=False)}
+    out.update({name: _tree_of(m) for name, m in module.named_children()})
+    return out
+
+
+def params_to_numpy(params: ParamTree) -> dict:
+    """The port's model as the JAX package's tree: numpy leaves, layers
+    stacked on axis 0, bfloat16 leaves widened to float32."""
+    out = {name: _to_numpy(p) for name, p in params.named_parameters(recurse=False)}
+    out.update({name: _tree_of(m) for name, m in params.named_children() if name != "blocks"})
+    out["blocks"] = _stack([_tree_of(b) for b in params.blocks])
+    return out
+
+
+def _stack(layers: list):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in layers]) for k in first}
+    return np.stack(layers)

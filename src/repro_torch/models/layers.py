@@ -1,0 +1,287 @@
+"""Layer primitives of the dense decoder (the dense part of the JAX
+package's `models/layers.py`).
+
+Functions over parameter modules whose leaves keep the JAX names and
+layouts (per layer):
+
+  attn:  wq [d, H, hd]   wk/wv [d, Kv, hd]   wo [H, hd, d]  (+ optional bq/bk/bv)
+  mlp:   wi [d, ff] (+ wg [d, ff] for GLU)   wo [ff, d]
+  norm:  scale [d]
+
+The JAX module's `shard(...)` calls (distributed/act.py) only annotate how
+activations lie on a device mesh; on one device they do nothing, so they
+are dropped here. Full-sequence attention runs the flash kernel wrapper
+(CUDA kernel on the card, plain version on the CPU); decode attention, the
+projections and the unembedding are plain PyTorch, as they are plain XLA
+in the JAX package. MoE, the SSM branch, modality frontends and int8
+weights are not ported yet (ROADMAP.md, "Modules to port", item 6).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+from .config import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+def _dense_init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
+    """Truncated normal in [-2, 2] times std (fan-in rule unless `scale`),
+    drawn in fp32 on the generator's device, then cast to `dtype`."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norm
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm in fp32 with the (1 + scale) convention; output in x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def init_norm(d: int, device) -> torch.Tensor:
+    return torch.zeros(d, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd], positions: [S] or [B, S] absolute token positions."""
+    half = x.shape[-1] // 2
+    freq = torch.exp(
+        -math.log(theta) * torch.arange(half, dtype=torch.float32, device=x.device) / half
+    )  # [half]
+    if positions.dim() == 1:
+        ang = (positions[:, None].float() * freq[None, :])[None, :, None, :]  # [1, S, 1, half]
+    else:
+        ang = (positions[..., None].float() * freq)[:, :, None, :]  # [B, S, 1, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pd = dtype_of(cfg.param_dtype)
+    p = {
+        "wq": _dense_init(gen, (d, h, hd), pd),
+        "wk": _dense_init(gen, (d, kv, hd), pd),
+        "wv": _dense_init(gen, (d, kv, hd), pd),
+        "wo": _dense_init(gen, (h, hd, d), pd, scale=1.0 / math.sqrt(h * hd * 2 * cfg.n_layers)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(h, hd, dtype=pd, device=gen.device)
+        p["bk"] = torch.zeros(kv, hd, dtype=pd, device=gen.device)
+        p["bv"] = torch.zeros(kv, hd, dtype=pd, device=gen.device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, bias, cd) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) (+ bias) in the compute dtype."""
+    y = torch.matmul(x, w.to(cd).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return y if bias is None else y + bias.to(cd)
+
+
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    cd = dtype_of(cfg.compute_dtype)
+    q = _project(x, p.wq, getattr(p, "bq", None), cd)
+    k = _project(x, p.wk, getattr(p, "bk", None), cd)
+    v = _project(x, p.wv, getattr(p, "bv", None), cd)
+    return q, k, v
+
+
+def _out_proj(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", o, wo) in the compute dtype."""
+    cd = dtype_of(cfg.compute_dtype)
+    wo = p.wo.to(cd)
+    return torch.matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+
+
+def attention_full(p, x: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence causal attention (prefill / forward), x: [B, S, d] -> ([B, S, d]
+    output, rotated keys [B, S, Kv, hd], values [B, S, Kv, hd]); JAX's
+    returns the output alone and `prefill_cache` recomputes the other two.
+
+    The kernel sees JAX's [B, H, S, hd] layout as transposed views of the
+    [B, S, H, hd] projections (it takes strides), and writes its output in
+    the same layout, so the transpose back is free."""
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=cfg.sliding_window,
+    )
+    return _out_proj(p, o.transpose(1, 2), cfg), k, v
+
+
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """KV ring-buffer length: bounded by the sliding window when present."""
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
+    c = cache_len(cfg, seq_len)
+    cd = dtype_of(cfg.compute_dtype)
+    shape = (batch, cfg.n_kv_heads, c, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cd, device=device),
+            "v": torch.zeros(shape, dtype=cd, device=device)}
+
+
+def prefill_cache(k_rot: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, seq_len_total: int) -> dict:
+    """The ring cache left by a prefill, from the rotated keys and the values
+    [B, S, Kv, hd] that `attention_full` computed.
+
+    For ring slot i (cache length C, prefill length S): the slot holds the
+    key of absolute position t_i = S-1 - ((S-1-i) mod C), matching the
+    decode-time write rule slot(t) = t mod C. Slots not yet written
+    (t_i < 0, when the prefill is shorter than the cache) hold the clamped
+    position 0's data, as JAX's clipping gather does; decode masks them out
+    via abs_pos >= 0.
+    """
+    s = k_rot.shape[1]
+    c = cache_len(cfg, seq_len_total)
+    slot = torch.arange(c, device=k_rot.device)
+    t_i = ((s - 1) - torch.remainder(s - 1 - slot, c)).clamp(0, s - 1)
+    return {
+        "k": k_rot.index_select(1, t_i).transpose(1, 2).contiguous(),
+        "v": v.index_select(1, t_i).transpose(1, 2).contiguous(),
+    }
+
+
+def attention_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig):
+    """One-token decode. x: [B, 1, d]; cache k/v: [B, Kv, C, hd]; pos int.
+
+    The cache is a ring buffer (slot = pos mod C); RoPE is applied at write
+    time with absolute positions, and masking reconstructs each slot's
+    absolute position as abs_i = pos - ((pos - i) mod C). Where JAX's
+    dynamic_update_slice returns a new cache, the port writes the new key
+    and value into the caller's cache tensors in place and returns the same
+    dict: a caller that needs the old cache keeps a copy.
+    """
+    b = x.shape[0]
+    cd = dtype_of(cfg.compute_dtype)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = h // kv
+    q, k, v = _qkv(p, x, cfg)  # [B, 1, *, hd]
+    pos_arr = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q = rope(q, pos_arr, cfg.rope_theta)
+    k = rope(k, pos_arr, cfg.rope_theta)
+
+    kc, vc = cache["k"], cache["v"]
+    c = kc.shape[2]
+    slot = pos % c
+    kc[:, :, slot].copy_(k[:, 0])
+    vc[:, :, slot].copy_(v[:, 0])
+
+    idx = torch.arange(c, device=x.device)
+    abs_pos = pos - torch.remainder(pos - idx, c)  # in [pos - C + 1, pos]
+    valid = abs_pos >= 0
+    if cfg.sliding_window is not None:
+        valid &= abs_pos > pos - cfg.sliding_window
+
+    qg = q.reshape(b, kv, group, hd).float()
+    scores = torch.einsum("bkgd,bkcd->bkgc", qg, kc.float()) / math.sqrt(hd)
+    scores = torch.where(valid, scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgc,bkcd->bkgd", w, vc.float()).to(cd)
+    return _out_proj(p, o.reshape(b, 1, h, hd), cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def _act(name: str):
+    acts = {"swiglu": F.silu, "geglu": _gelu_tanh, "relu2": _relu2, "gelu": _gelu_tanh}
+    if name not in acts:
+        raise ValueError(name)
+    return acts[name]
+
+
+def is_glu(name: str) -> bool:
+    return name in ("swiglu", "geglu")
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    pd = dtype_of(cfg.param_dtype)
+    p = {
+        "wi": _dense_init(gen, (d, ff), pd),
+        "wo": _dense_init(gen, (ff, d), pd, scale=1.0 / math.sqrt(ff * 2 * cfg.n_layers)),
+    }
+    if is_glu(cfg.mlp_act):
+        p["wg"] = _dense_init(gen, (d, ff), pd)
+    return p
+
+
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    act = _act(cfg.mlp_act)
+    h = torch.matmul(x, p.wi.to(cd))
+    if is_glu(cfg.mlp_act):
+        h = act(torch.matmul(x, p.wg.to(cd))) * h
+    else:
+        h = act(h)
+    return torch.matmul(h, p.wo.to(cd))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    pd = dtype_of(cfg.param_dtype)
+    p = {"embed": _dense_init(gen, (cfg.vocab, cfg.d_model), pd, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), pd)
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gather then cast: equal to JAX's cast-then-gather, without casting
+    the whole table on every call."""
+    cd = dtype_of(cfg.compute_dtype)
+    x = F.embedding(tokens, p.embed).to(cd)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
+    return x
+
+
+def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        return torch.matmul(x, p.embed.to(cd).T)
+    return torch.matmul(x, p.lm_head.to(cd))

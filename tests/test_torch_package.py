@@ -12,10 +12,16 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import reduced_config
 from repro_torch.core import alt, engine, scenarios, structs
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
+from repro_torch.launch import serve
+from repro_torch.models import init_caches, init_params
+from repro_torch.models.convert import params_from_jax, params_to_numpy
+from repro_torch.partition import run_partition, split_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -35,6 +41,26 @@ def test_cpu_solve_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_cpu_serve_cli_imports_neither_jax_nor_repro():
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['serve', '--arch', 'qwen1.5-0.5b', '--reduced', '--requests', '3',\n"
+        "            '--batch-slots', '2', '--prompt-len', '8', '--max-new', '3', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert '"requests": 3' in res.stdout and '"generated_tokens": 9' in res.stdout, res.stdout
 
 
 def _imports(path: Path):
@@ -76,6 +102,26 @@ def test_constructors_and_solvers_default_to_cuda(monkeypatch):
         lambda: engine.engine_solve(engine.stack_single(cpu_problem), m_max=1, t_phi=1,
                                     alpha=0.5, tol=1e-3, patience=1),
         lambda: repro_torch.resolve_device(),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_model_entry_points_default_to_cuda(monkeypatch):
+    """The serve path's entry points, called without device=, raise too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("qwen1.5-0.5b")
+    model = init_params(cfg, 0, device="cpu")
+    p1, _ = split_params(cfg, model, 1)
+    tree = params_to_numpy(model)
+    prompts = np.zeros((2, 4), np.int32)
+    for call in (
+        lambda: init_params(cfg),
+        lambda: init_caches(cfg, 1, 8),
+        lambda: params_from_jax(cfg, tree),
+        lambda: run_partition(cfg, p1, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, part=1),
+        lambda: serve.serve(cfg, model, prompts, batch_slots=2, max_new=2, max_seq=16),
+        lambda: serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--requests", "1"]),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -127,6 +173,13 @@ def test_kernel_wrappers_raise_instead_of_plain_on_cuda(monkeypatch):
         mp_ops.minplus_matmul(a, a)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         mp_ops.minplus_matmul_argmin(a, a)
+    monkeypatch.setattr(fa_ops, "attention_ref", _no_plain)
+    monkeypatch.setattr(fa_ops, "attention_chunked", _no_plain)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _FakeCuda(torch.zeros(1, 2, 6, 1, 16, dtype=dtype)[..., 0, :].transpose(1, 2))
+        kv = _FakeCuda(torch.zeros(1, 1, 6, 16, dtype=dtype))
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            fa_ops.flash_attention(q, kv, kv, window=4, q_offset=2)
 
 
 def test_kernel_wrappers_validate_cuda_inputs():
@@ -145,12 +198,26 @@ def test_kernel_wrappers_validate_cuda_inputs():
         mp_ops.minplus_matmul(a, a)
     with pytest.raises(ValueError, match="contiguous"):
         mp_ops.minplus_matmul(_FakeCuda(torch.zeros(6, 6).mT), _FakeCuda(torch.zeros(6, 6)))
+    q, kv = _FakeCuda(torch.zeros(1, 4, 8, 16)), _FakeCuda(torch.zeros(1, 2, 8, 16))
+    with pytest.raises(ValueError, match="shapes"):
+        fa_ops.flash_attention(q, _FakeCuda(torch.zeros(1, 3, 8, 16)), _FakeCuda(torch.zeros(1, 3, 8, 16)))
+    with pytest.raises(ValueError, match="shapes"):
+        fa_ops.flash_attention(q, kv, _FakeCuda(torch.zeros(1, 2, 9, 16)))
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, kv, _FakeCuda(torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="head dim"):
+        big = _FakeCuda(torch.zeros(1, 1, 2, 264))
+        fa_ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(_FakeCuda(torch.zeros(1, 4, 16, 8).mT), kv, kv)
+    with pytest.raises(ValueError, match="window"):
+        fa_ops.flash_attention(q, kv, kv, window=-1)
 
 
 def test_build_key_tracks_sources():
     """Each CUDA source builds into its own hashed library under build/kernels."""
     paths = {n: _build._lib_path(n) for n in _build.SOURCES}
-    assert set(paths) == {"neumann", "minplus"}
+    assert set(paths) == {"neumann", "minplus", "flash_attention"}
     for n, p in paths.items():
         assert p.parent == ROOT / "build" / "kernels" and p.name.startswith(n + "-")
         assert (PORT / "csrc" / f"{n}.cu").exists()
