@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
-`build/kernels/`), then runs six phases, each printing JSON lines:
+`build/kernels/`; phase 0 prints each kernel's registers and the count of
+HGMMA (wgmma) instructions in the flash library where the toolkit has
+cuobjdump), then runs six phases, each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Neumann rtol 1e-5, bf16 operands 2e-2, min-plus and
      its argmin bitwise, flash attention 1e-4 in fp32 and 2e-2 in bf16,
      fully masked rows exactly 0), with CUDA-event times, the plain
      version's time, a PyTorch-call yardstick where one computes the same
-     function, and the card's bound;
+     function, and the card's bound; each flash row names its variant
+     (wgmma or cuda_core), each neumann_rows row its cluster size and
+     whether the operator stays resident in shared memory;
   2. the paper's four scenarios through `compare_all` on the card, with
      `iot` and `geant` also solved on the CPU and compared, and the paper's
      claims checked;
@@ -28,9 +32,11 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
   6. the data plane: the same model split at layer 12, partition 1's
      activation fed to partition 2, against the monolithic logits.
 
-Kernel launches are counted only while the main paths run (phases 2-6);
-every kernel must have launched there. Any failed check raises, so the
-script exits non-zero. It exits non-zero without a GPU or without the
+Kernel launches are counted only while the main paths run (phases 2-6),
+by kernel and by variant; every kernel must have launched there, every
+phase-3 `neumann_rows` launch must be a resident cluster of more than one
+CTA, and every phase-5 prefill flash launch the wgmma variant. Any failed
+check raises, so the script exits non-zero. It exits non-zero without a GPU or without the
 repository's `src/repro_torch` beside it. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -85,12 +91,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 class Counter:
-    """Sums kernel launch counts over the main-path runs only."""
+    """Sums kernel launch counts, and the counts of each kernel variant,
+    over the main-path runs only."""
 
     def __init__(self, build):
         self.build = build
         self.total = {k: 0 for k in build.LAUNCHES}
+        self.total_variants = {k: {} for k in build.VARIANT_LAUNCHES}
         self.last = dict(self.total)
+        self.last_variants = {k: {} for k in build.VARIANT_LAUNCHES}
 
     def run(self, fn):
         import torch
@@ -100,10 +109,40 @@ class Counter:
         out = fn()
         torch.cuda.synchronize()
         self.last = dict(self.build.LAUNCHES)
+        self.last_variants = {k: dict(v) for k, v in self.build.VARIANT_LAUNCHES.items()}
         for k, v in self.last.items():
             self.total[k] += v
+        for k, by in self.last_variants.items():
+            for var, n in by.items():
+                self.total_variants[k][var] = self.total_variants[k].get(var, 0) + n
         self.build.reset_launches()
         return out
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """Registers and any spills of each kernel, from `-Xptxas=-v` output."""
+    out, name = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1][:48]
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+        elif "spill stores" in ln and ", 0 bytes spill stores" not in ln:
+            out.append(f"{name}: {ln.strip()}")
+    return out
+
+
+def sass_count(lib, op: str):
+    """Lines of `op` in the SASS of a built library, or None where the
+    toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    return sum(op in ln for ln in sass.splitlines())
 
 
 def neumann_hops_used(w, b, hops, tol, transpose):
@@ -136,6 +175,7 @@ def phase1(scen, build, stacked256):
     from repro_torch.kernels.neumann import (
         effective_hops, neumann_propagate, neumann_propagate_ref, neumann_solve,
     )
+    from repro_torch.kernels.neumann.ops import _rows_variant
 
     rows, summary = [], {}
 
@@ -186,10 +226,11 @@ def phase1(scen, build, stacked256):
                     if bool((got[exact == 0] != 0).any()):
                         raise AssertionError(f"{name} V={v} bf16: exact zeros not kept")
                 used = neumann_hops_used(wd, b, hops, 1e-6, transpose)
-                esize = 2 if dt == torch.bfloat16 else 4
+                esize = wd.element_size()
                 reps = 20 if v <= 256 else 5
+                variant = {} if transpose else {"variant": _rows_variant(v, esize)}
                 keep(name, {
-                    "kernel": name, "shape": f"N={n_ops} V={v} {str(dt)[6:]}", "hops_cap": hops,
+                    "kernel": name, "shape": f"N={n_ops} V={v} {str(dt)[6:]}", **variant, "hops_cap": hops,
                     "hops_used_mean": used / n_ops, "max_abs_err": err,
                     "ms": cuda_ms(lambda: neumann_propagate(wd, b, hops=hops, transpose=transpose), reps),
                     "plain_ms": cuda_ms(lambda: neumann_propagate_ref(wd, b, hops, 1e-6, transpose), 2, 1),
@@ -205,7 +246,8 @@ def phase1(scen, build, stacked256):
             err = (bb.grad - want).abs().max().item()
             if not err <= NEUMANN_RTOL * want.abs().max().item():
                 raise AssertionError(f"neumann backward V={v}: max err {err}")
-            rows.append({"kernel": "neumann_rows", "shape": f"backward N={n_ops} V={v}", "max_abs_err": err})
+            rows.append({"kernel": "neumann_rows", "shape": f"backward N={n_ops} V={v}",
+                         "variant": _rows_variant(v, 4), "max_abs_err": err})
         del state, w, b
         torch.cuda.empty_cache()
 
@@ -272,24 +314,32 @@ def flash_live_entries(sq, sk, causal, window, q_offset) -> int:
 
 
 def phase1_flash():
-    """The flash-attention kernel vs its plain version (the streaming
-    recurrence `attention_chunked`, which shares the kernel's treatment of
-    rows that see no key), at the serve prefill shape and the edge cases."""
+    """The flash-attention kernels vs their plain version (the streaming
+    recurrence `attention_chunked`, which shares the kernels' treatment of
+    rows that see no key), at the serve prefill shape, the other head shapes
+    of the zoo, and the edge cases in both dtypes. Each row names the kernel
+    variant that ran; at the serve prefill shape the CUDA-core kernel is also
+    timed on the same bf16 inputs (`cuda_core_ms`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_chunked, flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
     # (tag, B, H, Kv, Sq, Sk, D, causal, window, q_offset, dtype, model layout)
     cases = [
         ("serve prefill", 8, 16, 16, 1024, 1024, 64, True, None, 0, bf16, True),
+        ("GQA 8:1 D=128", 1, 64, 8, 1024, 1024, 128, True, None, 0, bf16, True),
         ("MQA D=256", 1, 8, 1, 2048, 2048, 256, True, None, 0, bf16, True),
-        ("GQA 4:1 window 128 q_offset", 1, 8, 2, 256, 512, 64, True, 128, 256, fp32, False),
-        ("non-multiple S=100", 2, 4, 2, 100, 100, 64, True, None, 0, fp32, False),
-        ("bidirectional", 1, 4, 4, 512, 512, 64, False, None, 0, fp32, True),
-        ("fully masked q_offset=-100", 1, 2, 2, 8, 8, 64, True, None, -100, fp32, False),
     ]
+    for dt in (fp32, bf16):
+        cases += [
+            ("GQA 4:1 window 128 q_offset", 1, 8, 2, 256, 512, 64, True, 128, 256, dt, False),
+            ("non-multiple S=100", 2, 4, 2, 100, 100, 64, True, None, 0, dt, False),
+            ("bidirectional", 1, 4, 4, 512, 512, 64, False, None, 0, dt, True),
+            ("fully masked q_offset=-100", 1, 2, 2, 8, 8, 64, True, None, -100, dt, False),
+        ]
     rows = []
     for tag, b, h, kv, sq, sk, d, causal, window, q_offset, dt, model_layout in cases:
         def make(heads, s):
@@ -307,25 +357,33 @@ def phase1_flash():
         err = (got.float() - want.float()).abs().max().item()
         tol = FLASH_BF16_TOL if dt == bf16 else FLASH_FP32_TOL
         if not err <= tol:
-            raise AssertionError(f"flash {tag}: max abs error {err} > {tol}")
+            raise AssertionError(f"flash {tag} {dt}: max abs error {err} > {tol}")
         if q_offset < -sq and not bool((got == 0).all()):
-            raise AssertionError(f"flash {tag}: fully masked rows are not exactly 0")
+            raise AssertionError(f"flash {tag} {dt}: fully masked rows are not exactly 0")
         live = flash_live_entries(sq, sk, causal, window, q_offset) * b * h
         esize = q.element_size()
         bytes_ = (2 * q.numel() + k.numel() + v.numel()) * esize  # q, k, v read once, o written once
         t_b, t_o = bytes_ / HBM_BYTES_PER_S, 4 * d * live / (BF16_OPS_PER_S if dt == bf16 else FP32_OPS_PER_S)
         same_fn = window is None and q_offset == 0 and sq == sk
         reps = 10 if sq >= 1024 else 20
-        rows.append({
+        row = {
             "kernel": "flash_attention", "shape": f"{tag}: B={b} H={h} Kv={kv} Sq={sq} Sk={sk} D={d} "
                                                  f"{str(dt)[6:]}{' causal' if causal else ''}",
-            "max_abs_err": err, "live_scores": live,
+            "variant": fa_ops._variant(dt, d), "max_abs_err": err, "live_scores": live,
             "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), reps),
             "plain_ms": cuda_ms(lambda: attention_chunked(q, k, v, **kw), 2, 1),
             "bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=kv != h), reps) if same_fn else None,
-        })
+        }
+        if tag == "serve prefill":  # the CUDA-core kernel on the same inputs, for comparison
+            variant = fa_ops._variant
+            fa_ops._variant = lambda dtype, dim: "cuda_core"
+            try:
+                row["cuda_core_ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw), 3)
+            finally:
+                fa_ops._variant = variant
+        rows.append(row)
         del q, k, v, got, want
     torch.cuda.empty_cache()
     emit({"phase": 1, "name": "flash_vs_plain", "rows": rows})
@@ -389,7 +447,11 @@ def phase3(core, pad, counter, stacked, lane0):
     out = counter.run(lambda: core.engine_solve(stacked, **kw))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = counter.last
+    launches, rows_variants = counter.last, counter.last_variants["neumann_rows"]
+    # Every cost-to-go solve runs on a cluster that keeps its operator resident.
+    if not rows_variants or sum(rows_variants.values()) != launches["neumann_rows"] or not all(
+            k.endswith("_resident") and int(k[1:k.index("_")]) > 1 for k in rows_variants):
+        raise AssertionError(f"phase 3: neumann_rows variants {rows_variants}")
     J, hist = out["J"], out["history"]
     if J.shape != (64,) or not bool(torch.isfinite(J).all()):
         raise AssertionError("phase 3: J not finite or wrong shape")
@@ -431,14 +493,15 @@ def phase3(core, pad, counter, stacked, lane0):
         "forwarding_ms": ev[2].elapsed_time(ev[3]),
     }
     split["profile"] = profile(
-        one_round, {"neumann": ("neumann_kernel",), "minplus": ("minplus_kernel",)}, sum(split.values())
+        one_round, {"neumann_rows": ("neumann_rows_kernel",), "neumann_cols": ("neumann_cols_kernel",),
+                    "minplus": ("minplus_kernel",)}, sum(split.values())
     )
     emit({
         "phase": 3, "B": 64, "V": 256, "A": 32, "K": 3, **kw,
         "rounds": out["rounds"], "wall_s": wall, "ms_per_round": 1e3 * wall / max(out["rounds"], 1),
         "peak_gb": peak / 1e9, "J_mean": J.mean().item(), "conservation_rel": cons,
         "lane0_rel_vs_B1": rel0, "lane0_same_hosts": same_hosts, "launches": launches,
-        "split": split,
+        "neumann_rows_variants": rows_variants, "split": split,
     })
 
 
@@ -507,7 +570,8 @@ def profile(fn, families, wall_ms=None) -> dict:
 
 
 # cuBLAS's kernels on this toolkit are named nvjet_* (GEMM) and gemv*.
-SERVE_FAMILIES = {"flash": ("flash_kernel",), "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
+SERVE_FAMILIES = {"flash": ("flash_kernel", "flash_wgmma_kernel"),
+                  "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
 
 
 def phase5(counter):
@@ -546,6 +610,9 @@ def phase5(counter):
         raise AssertionError(f"phase 5: summary {summary}")
     if launches["flash_attention"] != cfg.n_layers * n_prefills or n_prefills != 2:
         raise AssertionError(f"phase 5: {launches['flash_attention']} flash launches, {n_prefills} prefills")
+    flash_variants = counter.last_variants["flash_attention"]
+    if flash_variants != {"wgmma": launches["flash_attention"]}:  # every prefill on the tensor cores
+        raise AssertionError(f"phase 5: flash variants {flash_variants}")
     if not all(len(t) == max_new and all(0 <= x < cfg.vocab for x in t) for t in tokens):
         raise AssertionError("phase 5: malformed generated tokens")
 
@@ -613,7 +680,7 @@ def phase5(counter):
         "phase": 5, "arch": cfg.name, "params": n_params, "requests": requests, "slots": slots,
         "prompt_len": prompt_len, "max_new": max_new, "max_seq": max_seq, "serve": {
             k: v for k, v in summary.items() if k != "metrics"},
-        "prefills": n_prefills, "launches": launches, "peak_gb": peak / 1e9,
+        "prefills": n_prefills, "launches": launches, "flash_variants": flash_variants, "peak_gb": peak / 1e9,
         "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
         "profile_prefill": prof_prefill, "profile_4_decode_steps": prof_decode, "wave_8x16": prof_wave,
         "prefill_decode_vs_forward": consistency, "gpu_vs_cpu_max_rel": gpu_vs_cpu,
@@ -672,11 +739,14 @@ def main() -> int:
 
     card = gpu_line()
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
+    hgmma = sass_count(libs["flash_attention"], "HGMMA")
+    if hgmma == 0:
+        raise AssertionError("the flash library holds no HGMMA (wgmma) instruction")
     emit({"phase": 0, "name": "build", "build_s": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": {n: [ln.split(":", 1)[1].strip() for ln in _build.build_log(n).splitlines()
-                        if "registers" in ln] for n in _build.SOURCES}})
+          "flash_hgmma_instructions": "not measured (no cuobjdump)" if hgmma is None else hgmma,
+          "ptxas": {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}})
 
     problems = [scen.random_connected(256, 32, seed=s) for s in range(64)]
     stacked = pad.stack_problems(problems)
@@ -714,6 +784,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches, "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "shape": s["shape"],
+            **({"variants": counter.total_variants[name]} if name in counter.total_variants else {}),
         })
     emit({"kernels": kernels})
     print(card, flush=True)

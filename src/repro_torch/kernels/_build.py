@@ -31,13 +31,17 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# Launch counts of every kernel, by name. Each wrapper adds one where it
-# launches its kernel and nowhere else, so a run can show that its main path
-# went through the kernels (chip_smoke.py resets and reads these).
+# Launch counts of every kernel, by name, and of the variants of the kernels
+# that have more than one (flash_attention: "wgmma" | "cuda_core";
+# neumann_rows: "c<C>_resident" | "c<C>_streamed"). Each wrapper calls
+# `count` where it launches its kernel and nowhere else, so a run can show
+# that its main path went through the kernels (chip_smoke.py resets and
+# reads these).
 LAUNCHES = {
     "neumann_cols": 0, "neumann_rows": 0, "minplus": 0, "minplus_argmin": 0,
     "flash_attention": 0,
 }
+VARIANT_LAUNCHES: dict[str, dict[str, int]] = {"neumann_rows": {}, "flash_attention": {}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -45,6 +49,16 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for v in VARIANT_LAUNCHES.values():
+        v.clear()
+
+
+def count(name: str, variant: str | None = None) -> None:
+    """One launch of kernel `name` (of `variant`, for kernels that have them)."""
+    LAUNCHES[name] += 1
+    if variant is not None:
+        by = VARIANT_LAUNCHES[name]
+        by[variant] = by.get(variant, 0) + 1
 
 
 def _nvcc() -> str:

@@ -1,10 +1,12 @@
 """Public attention op: the flash-attention kernel wrapper.
 
-`flash_attention` launches the hand-written CUDA kernel
-(csrc/flash_attention.cu) for CUDA tensors and raises if it cannot; CPU
+`flash_attention` launches one of the two hand-written CUDA kernels
+(csrc/flash_attention.cu) for CUDA tensors and raises if it cannot: the
+tensor-core kernel for bf16 with a head dim that is a multiple of 16, the
+CUDA-core kernel otherwise (`_variant`, by dtype and head dim alone). CPU
 tensors take the plain route the JAX package takes without Pallas:
 `attention_ref`, or the streaming `attention_chunked` above
-`_CHUNKED_THRESHOLD`. There is no switch and no fallback between the two.
+`_CHUNKED_THRESHOLD`. There is no switch and no fallback between them.
 """
 from __future__ import annotations
 
@@ -20,7 +22,27 @@ from .ref import attention_chunked, attention_ref
 _CHUNKED_THRESHOLD = 2048 * 2048
 
 _INT32_MAX = 2**31 - 1
-_MAX_Q_BLOCKS = 65535  # gridDim.y limit; the kernel takes 32 query rows a block
+_MAX_Q_BLOCKS = 65535  # gridDim.y limit; the CUDA-core kernel takes 32 query rows a block
+
+
+def _variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call takes: "wgmma" (tensor cores, bf16 operands
+    in 16-column steps, fp32 softmax state) for bf16 with d % 16 == 0, else
+    "cuda_core" (fp32 arithmetic throughout: tensor cores would mean TF32
+    for fp32 inputs)."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 256 else "cuda_core"
+
+
+def _check_tma(*ts: torch.Tensor) -> None:
+    """The tensor-core kernel loads q, k and v by TMA: 16-byte aligned base
+    addresses and strides of whole 16-byte units in every dim of extent > 1."""
+    for t in ts:
+        strides = [st for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(
+                "flash_attention: the bf16 tensor-core kernel needs 16-byte aligned q/k/v "
+                f"and strides that are multiples of 8 elements; got strides {tuple(t.stride())}"
+            )
 
 
 def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
@@ -45,21 +67,25 @@ def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.T
         raise ValueError(f"flash_attention: window {window} outside 0..2^31-1")
     if abs(q_offset) > _INT32_MAX // 2:
         raise ValueError(f"flash_attention: q_offset {q_offset} out of range")
+    variant = _variant(q.dtype, d)
+    if variant == "wgmma":
+        _check_tma(q, k, v)
     fn = _build.load("flash_attention").flash_attention_fwd
     out = torch.empty_like(q)  # q's layout: a transposed [B, S, H, D] view stays one
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             b, h, kv, sq, sk, d, int(causal), int(window is not None),
             0 if window is None else window, q_offset, 1.0 / float(d) ** 0.5,
-            int(q.dtype == torch.bfloat16), _build.stream_of(q),
+            int(q.dtype == torch.bfloat16), int(variant == "wgmma"), _build.stream_of(q),
         )
-        _build.LAUNCHES["flash_attention"] += 1
+        _build.count("flash_attention", variant)
     _build.check(err, "flash_attention")
     return out
 

@@ -48,7 +48,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, argmin: bool):
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             idx.data_ptr() if argmin else None, batch, m, k, n, _build.stream_of(a),
         )
-        _build.LAUNCHES["minplus_argmin" if argmin else "minplus"] += 1
+        _build.count("minplus_argmin" if argmin else "minplus")
     _build.check(err, "minplus_matmul")
     return (out, idx) if argmin else out
 

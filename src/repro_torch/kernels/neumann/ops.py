@@ -2,7 +2,9 @@
 
 `neumann_propagate` is the kernel wrapper: on a CUDA tensor it launches the
 hand-written kernel (csrc/neumann.cu), on a CPU tensor it runs the plain
-version; it never falls back from one to the other. `neumann_solve` is the
+version; it never falls back from one to the other. The rows kernel splits
+each operator's rows over a thread-block cluster whose size `_rows_cluster`
+picks from V and the operand size alone. `neumann_solve` is the
 differentiable solve of (I - m) x = b on top of it, a
 `torch.autograd.Function` whose backward is the transpose solve through the
 same kernel (this replaces `jax.lax.custom_linear_solve`).
@@ -33,6 +35,52 @@ DEFAULT_TOL = 1e-6
 # The TPU's tiled kernel streamed W in [block_k, Vp] row tiles; the CUDA
 # kernel has no use for the value but keeps its contract.
 LANE = 128
+
+# neumann_rows keeps a CTA's row block of W in shared memory up to this size,
+# so that three CTAs (plus their iterates) share one SM's 227 KB.
+_ROWS_BUDGET = 64 * 1024
+_CLUSTERS = (1, 2, 4, 8)  # 8: the largest portable cluster
+_SMEM_MAX = 227 * 1024
+_ROW_WARPS = 8  # warps of a neumann_rows CTA (csrc/neumann.cu kRowWarps)
+
+
+def _rows_cluster(v: int, esize: int) -> tuple[int, bool]:
+    """(C, resident) for neumann_rows on V nodes with `esize`-byte operands:
+    the smallest cluster C whose ceil(V / C) x V row block fits
+    `_ROWS_BUDGET`, held in shared memory for the whole solve; else C = 8,
+    resident while a CTA's shared memory holds its block (V <= 664 in fp32),
+    and past that streamed from L2 on every hop."""
+    for c in _CLUSTERS:
+        if -(-v // c) * v * esize <= _ROWS_BUDGET:
+            return c, True
+    c = _CLUSTERS[-1]
+    return c, _rows_smem(v, esize, c, True) <= _SMEM_MAX
+
+
+def _rows_variant(v: int, esize: int) -> str:
+    """The launch-count name of the rows kernel's variant, e.g. "c4_resident"."""
+    c, resident = _rows_cluster(v, esize)
+    return f"c{c}_{'resident' if resident else 'streamed'}"
+
+
+def _rows_smem(v: int, esize: int, c: int, resident: bool) -> int:
+    """Shared memory of one neumann_rows CTA (csrc/neumann.cu
+    `rows_w_offset`): every warp's residual pairs, an mbarrier, two
+    iterates and b, then the resident row block."""
+    head = -(-(4 * _CLUSTERS[-1] * _ROW_WARPS * 4 + 16 + 12 * v) // 16) * 16
+    return head + (-(-v // c) * v * esize if resident else 0)
+
+
+def _check_rows_launch(n: int, v: int, esize: int, c: int, resident: bool) -> None:
+    """What the rows launch needs of its cluster: a size in {1, 2, 4, 8}
+    (which divides the grid of n * C CTAs), a grid within 2^31 - 1 CTAs and
+    shared memory within the 227 KB a CTA can have."""
+    if c not in _CLUSTERS:
+        raise ValueError(f"neumann_propagate: cluster size {c} not in {_CLUSTERS}")
+    if n * c > 2**31 - 1:
+        raise ValueError(f"neumann_propagate: {n} operators x cluster {c} exceed the grid")
+    if _rows_smem(v, esize, c, resident) > _SMEM_MAX:
+        raise ValueError(f"neumann_propagate: V={v} needs more than {_SMEM_MAX} bytes of shared memory")
 
 
 def effective_hops(
@@ -80,24 +128,30 @@ def _launch(w, b, hops, tol, transpose) -> torch.Tensor:
     bstride = _batch_stride(w, 2)
     if bstride is None or not b.is_contiguous():
         raise ValueError("neumann_propagate: w's batch dims must share one stride, b contiguous")
-    fn = _build.load("neumann").neumann_propagate
     n = b.numel() // v if v else 0
+    c, resident = (1, False) if transpose else _rows_cluster(v, w.element_size())
+    if not transpose:
+        _check_rows_launch(n, v, w.element_size(), c, resident)
+    fn = _build.load("neumann").neumann_propagate
     out = torch.empty_like(b)
     if n == 0:
         return out
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     with torch.cuda.device(w.device):
         err = fn(
             w.data_ptr(), bstride, b.data_ptr(), out.data_ptr(), n, v, int(hops),
-            float(tol), int(transpose), int(w.dtype == torch.bfloat16),
+            float(tol), int(transpose), int(w.dtype == torch.bfloat16), c, int(resident),
             _build.stream_of(w),
         )
-        _build.LAUNCHES["neumann_cols" if transpose else "neumann_rows"] += 1
+        if transpose:
+            _build.count("neumann_cols")
+        else:
+            _build.count("neumann_rows", _rows_variant(v, w.element_size()))
     _build.check(err, "neumann_propagate")
     return out
 

@@ -7,6 +7,8 @@ Tolerances: fp32 atol/rtol 1e-5 (the same fp32 softmax, summed in another
 order); bf16 2e-2 (test_kernels.py's bf16 bound: the output is rounded to
 bf16 after fp32 arithmetic that differs in summation order).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,3 +132,74 @@ def test_strided_views_match_contiguous():
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=16)
     _close(flash_attention(q, k, v, window=16), want, torch.float32)
     _close(attention_chunked(q, k, v, window=16, q_chunk=16, kv_chunk=16), want, torch.float32)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,want",
+    [(torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+     (torch.bfloat16, 100, "cuda_core")],
+)
+def test_variant_by_dtype_and_head_dim(dtype, d, want):
+    """bf16 with a head dim that is a multiple of 16 takes the tensor cores;
+    fp32 (which would be TF32 there) and other head dims the CUDA cores."""
+    assert fa_ops._variant(dtype, d) == want
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, q_offset, bk):
+    """The tensor-core kernel's arithmetic in PyTorch: bf16 operands, fp32
+    scores and softmax state over KV tiles of `bk` keys, P rounded to bf16
+    before P.V (its one extra rounding point) while the row sum takes the
+    unrounded P, output acc / max(l, 1e-30) rounded to bf16."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    group = h // kv
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    qf = q.float()
+    q_pos = q_offset + torch.arange(sq)
+    m = torch.full((b, h, sq), M_INIT)
+    l = torch.zeros(b, h, sq)
+    acc = torch.zeros(b, h, sq, d)
+    for k0 in range(0, sk, bk):
+        k_pos = torch.arange(k0, min(k0 + bk, sk))
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bk]) / d ** 0.5
+        ok = torch.ones(sq, len(k_pos), dtype=torch.bool)
+        if causal:
+            ok &= k_pos[None] <= q_pos[:, None]
+        if window is not None:
+            ok &= k_pos[None] > q_pos[:, None] - window
+        s = torch.where(ok, s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        p16 = p.to(torch.bfloat16).float()
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p16, vf[:, :, k0:k0 + bk])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [(2, 4, 4, 256, 256, 64, True, None, 0, 128),     # reduced serve prefill, D <= 128 tiles
+     (1, 8, 2, 128, 256, 64, True, 96, 128, 128),     # GQA 4:1, window, q_offset
+     (1, 4, 1, 128, 128, 256, True, None, 0, 64)],    # MQA D=256, 64-key tiles
+    ids=["prefill", "gqa-window", "mqa-d256"],
+)
+def test_bf16_p_rounding_within_tolerance(case):
+    """P rounded to bf16 before P.V (the tensor-core kernel's design) stays
+    within FLASH_BF16_TOL of the Pallas kernel in interpret mode and of
+    `attention_chunked`, the plain version the kernel is held against."""
+    b, h, kv, sq, sk, d, causal, window, q_offset, bk = case
+    (jq, jk, jv), (q, k, v) = _inputs(b, h, kv, sq, sk, d, 29 + d + sq, torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _emulate_wgmma(q, k, v, bk=bk, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close(got, attention_chunked(q, k, v, **kw), torch.bfloat16)
+    _close(got, flash_attention_pallas(jq, jk, jv, interpret=True, **kw), torch.bfloat16)
+    # Against fp32 attention on the same bf16 inputs, P's rounding and the
+    # output's together stay within one bf16 ulp of the largest output.
+    exact = attention_chunked(q.float(), k.float(), v.float(), **kw)
+    top = exact.abs().max().item()
+    assert (got.float() - exact).abs().max().item() <= 2.0 ** (math.floor(math.log2(top)) - 7)

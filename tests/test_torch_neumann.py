@@ -24,7 +24,7 @@ from repro_torch.kernels.neumann import (
     neumann_propagate_ref,
     neumann_solve,
 )
-from repro_torch.kernels.neumann.ops import _batch_stride
+from repro_torch.kernels.neumann.ops import _batch_stride, _rows_cluster, _rows_smem
 
 jax.config.update("jax_enable_x64", False)
 
@@ -200,3 +200,63 @@ def test_cost_to_go_is_gradient(stage):
     inj = torch.zeros(1, p.net.n_nodes, requires_grad=True)
     objective_with_injection(p, s, a, stage, inj).sum().backward()
     np.testing.assert_allclose(inj.grad[0].numpy(), q[0, a, stage].numpy(), rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("v", [17, 64, 256, 512, 1024, 1280])
+@pytest.mark.parametrize("esize", [4, 2], ids=["fp32", "bf16"])
+def test_rows_cluster_fits(v, esize):
+    """The rows kernel's cluster: at most 8 CTAs, their row blocks cover V,
+    and one CTA's shared memory stays within the 227 KB a block can have."""
+    c, resident = _rows_cluster(v, esize)
+    rows = -(-v // c)
+    assert c in (1, 2, 4, 8) and c * rows >= v
+    assert _rows_smem(v, esize, c, resident) <= 227 * 1024
+    if resident and c > 1:  # the smallest cluster whose rows fit the budget
+        assert -(-v // (c // 2)) * v * esize > 64 * 1024
+    if (v, esize) == (256, 4):  # the batched engine's cost-to-go solves
+        assert (c, resident) == (4, True)
+    if v <= 30:  # the paper's topologies: one CTA, as before the cluster split
+        assert (c, resident) == (1, True)
+
+
+def _row_block_split(w, b, hops, tol, c):
+    """The cluster kernel's schedule on the CPU: x_new assembled from C row
+    blocks, each computed from the full previous iterate; the residual pair
+    as the NaN-propagating max of the blocks' maxima; every block takes the
+    same break decision."""
+    v = w.shape[-1]
+    rows = -(-v // c)
+    blocks = [slice(r, min(v, r + rows)) for r in range(0, v, rows)]
+    x = b
+    done = torch.zeros(b.shape[:-1], dtype=torch.bool)
+    for _ in range(hops):
+        x_new = torch.cat([b[..., blk] + (w[..., blk, :] @ x[..., None])[..., 0] for blk in blocks], -1)
+        resid = torch.stack([(x_new[..., blk] - x[..., blk]).abs().amax(-1) for blk in blocks]).amax(0)
+        scale = torch.stack([x_new[..., blk].abs().amax(-1) for blk in blocks]).amax(0) + 1e-30
+        x = torch.where(done[..., None], x, x_new)
+        done = done | (resid <= tol * scale)
+        if bool(done.all()):
+            break
+    return x
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_row_block_split_is_bitwise_the_plain_solve(c):
+    """Splitting the rows over a cluster changes no bit of the solve: the
+    emulation equals `neumann_propagate_ref`, including a NaN element that
+    never converges, a zero right-hand side that stops after one hop and a
+    hop cap that cuts the rest short. Integer operators keep every sum exact,
+    so the comparison sees the split and not the summation order."""
+    rng = np.random.RandomState(11 + c)
+    v = 37
+    m = np.triu((rng.rand(4, v, v) < 0.08) * rng.randint(1, 3, (4, v, v)), 1).astype(np.float32)
+    m = torch.from_numpy(m)
+    b = torch.from_numpy(rng.randint(0, 4, (4, v)).astype(np.float32))
+    b[1] = 0.0
+    m[2, 5, 9] = float("nan")
+    for hops in (40, 5):
+        got = _row_block_split(m, b, hops, 1e-6, c)
+        want = neumann_propagate_ref(m, b, hops)
+        assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert torch.nan_to_num(want).abs().max() < 2**24  # exact in fp32

@@ -214,6 +214,47 @@ def test_kernel_wrappers_validate_cuda_inputs():
         fa_ops.flash_attention(q, kv, kv, window=-1)
 
 
+def test_kernel_wrappers_validate_variant_rules(monkeypatch):
+    """The launch rules of the tensor-core flash kernel and of the clustered
+    rows kernel raise before any launch; inputs outside them take the other
+    kernel, never the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(fa_ops, "attention_ref", _no_plain)
+    monkeypatch.setattr(fa_ops, "attention_chunked", _no_plain)
+    monkeypatch.setattr(ne_ops, "neumann_propagate_ref", _no_plain)
+    # A sequence stride of 20 elements is not a whole number of 16-byte units.
+    for dtype, d, route in ((torch.bfloat16, 16, "tensor-core"), (torch.float32, 16, "needs a CUDA device"),
+                            (torch.bfloat16, 12, "needs a CUDA device")):
+        q = _FakeCuda(torch.zeros(1, 2, 8, 20, dtype=dtype)[..., :d])
+        kv = _FakeCuda(torch.zeros(1, 2, 8, d, dtype=dtype))
+        with pytest.raises((ValueError, RuntimeError), match=route):
+            fa_ops.flash_attention(q, kv, kv)
+    w, b = _FakeCuda(torch.zeros(2, 100, 100)), _FakeCuda(torch.ones(2, 100))
+    monkeypatch.setattr(ne_ops, "_rows_cluster", lambda v, esize: (3, True))
+    with pytest.raises(ValueError, match="cluster size 3"):
+        ne_ops.neumann_propagate(w, b, hops=3)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):  # cols takes no cluster
+        ne_ops.neumann_propagate(w, b, hops=3, transpose=True)
+    monkeypatch.setattr(ne_ops, "_rows_cluster", lambda v, esize: (1, True))
+    monkeypatch.setattr(ne_ops, "_SMEM_MAX", 16 * 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        ne_ops.neumann_propagate(w, b, hops=3)
+
+
+def test_launch_counts_by_variant(monkeypatch):
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    monkeypatch.setattr(_build, "VARIANT_LAUNCHES", {"neumann_rows": {}, "flash_attention": {}})
+    _build.count("flash_attention", "wgmma")
+    _build.count("flash_attention", "wgmma")
+    _build.count("neumann_rows", "c4_resident")
+    _build.count("minplus")
+    assert _build.LAUNCHES["flash_attention"] == 2 and _build.LAUNCHES["minplus"] == 1
+    assert _build.VARIANT_LAUNCHES == {"neumann_rows": {"c4_resident": 1}, "flash_attention": {"wgmma": 2}}
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values()) and _build.VARIANT_LAUNCHES == {"neumann_rows": {}, "flash_attention": {}}
+
+
 def test_build_key_tracks_sources():
     """Each CUDA source builds into its own hashed library under build/kernels."""
     paths = {n: _build._lib_path(n) for n in _build.SOURCES}
