@@ -4,18 +4,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
-`build/kernels/`; phase 0 prints each kernel's registers and the count of
-HGMMA (wgmma) instructions in the flash library where the toolkit has
-cuobjdump), then runs six phases, each printing JSON lines:
+`build/kernels/`; phase 0 prints each kernel's registers, the count of
+HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
+instruction mix where the toolkit has cuobjdump, and fails if
+`neumann_cols_kernel` spills), then runs six phases, each printing JSON
+lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
-     paths' shapes (Neumann rtol 1e-5, bf16 operands 2e-2, min-plus and
-     its argmin bitwise, flash attention 1e-4 in fp32 and 2e-2 in bf16,
-     fully masked rows exactly 0), with CUDA-event times, the plain
-     version's time, a PyTorch-call yardstick where one computes the same
-     function, and the card's bound; each flash row names its variant
-     (wgmma or cuda_core), each neumann_rows row its cluster size and
-     whether the operator stays resident in shared memory;
+     paths' shapes (Neumann rtol 1e-5 at the traffic scan's stages 0-2 for
+     V = 256, and for the cols kernel also at V = 8200, bf16 operands
+     2e-2; min-plus and its argmin bitwise, ragged shapes included; flash
+     attention 1e-4 in fp32 and 2e-2 in bf16, fully masked rows exactly 0),
+     with CUDA-event times, the plain version's time, a PyTorch-call
+     yardstick (for Neumann the dense LU solve), and the card's bound;
+     each flash row names its variant (wgmma or cuda_core), each Neumann
+     row its cluster size and whether the operator stays on chip, and the
+     hops its early exit took;
   2. the paper's four scenarios through `compare_all` on the card, with
      `iot` and `geant` also solved on the CPU and compared, and the paper's
      claims checked;
@@ -34,8 +38,9 @@ cuobjdump), then runs six phases, each printing JSON lines:
 
 Kernel launches are counted only while the main paths run (phases 2-6),
 by kernel and by variant; every kernel must have launched there, every
-phase-3 `neumann_rows` launch must be a resident cluster of more than one
-CTA, and every phase-5 prefill flash launch the wgmma variant. Any failed
+phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
+of more than one CTA, and every phase-5 prefill flash launch the wgmma
+variant. Any failed
 check raises, so the script exits non-zero. It exits non-zero without a GPU or without the
 repository's `src/repro_torch` beside it. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -55,6 +60,10 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bound column.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # CUDA cores, an FMA counted as two operations
+# Thread-instructions a second: 132 SMs x 4 x 32 a clock x 1.98 GHz (the clock
+# that 67 TFLOP/s implies). Min-plus has no fused add-min, so its bound counts
+# issued instructions: 2 a candidate (FADD, FMNMX), 4 with the argmin.
+FP32_ISSUE_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
 
 NEUMANN_RTOL = 1e-5  # same algorithm, different fp32 summation order
@@ -120,11 +129,19 @@ class Counter:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """Registers and any spills of each kernel, from `-Xptxas=-v` output."""
+    """Registers and any spills of each kernel, from `-Xptxas=-v` output,
+    by kernel name and template arguments as mangled (e.g.
+    "neumann_cols_kernelIfLb1ELb1EE": fp32, vector loads, resident)."""
+    import re
+
     out, name = [], ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1][:48]
+            mangled = ln.split("'")[1]
+            end = mangled.find("_kernel") + len("_kernel")
+            m = re.search(r"[a-z_]+$", mangled[:end]) if end >= len("_kernel") else None
+            args = re.match(r"I(?:[^LE]|L\w+?E)*E", mangled[end:]) if m else None
+            name = m.group(0) + (args.group(0) if args else "") if m else mangled[:48]
         elif "registers" in ln:
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
         elif "spill stores" in ln and ", 0 bytes spill stores" not in ln:
@@ -132,17 +149,48 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def sass_count(lib, op: str):
-    """Lines of `op` in the SASS of a built library, or None where the
-    toolkit has no cuobjdump."""
+def sass_opcodes(lib):
+    """{function: {opcode: count}} of the SASS of a built library (opcode
+    with its modifiers, e.g. "LDS.128"), or None where the toolkit has no
+    cuobjdump."""
     import os
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    return sum(op in ln for ln in sass.splitlines())
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = out.setdefault(ln.split("Function :", 1)[1].strip(), {})
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if fn is not None and m:
+            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+    return out
+
+
+def minplus_sass(ops) -> dict:
+    """The min-plus kernels' instruction mix: the arithmetic (FADD, FMNMX),
+    the shared loads (LDS.128 and the scalar rest), local-memory traffic
+    (spills: LDL/STL) and cp.async (LDGSTS). The product kernel must be
+    arithmetic fed by 16-byte shared loads, with no spills."""
+    out = {}
+    for fn, counts in ops.items():
+        if "minplus" not in fn:
+            continue
+        name = "minplus_argmin_kernel" if "argmin" in fn else f"minplus_tile_kernel<{str('ILb1E' in fn).lower()}>"
+        pick = {op: sum(n for k, n in counts.items() if k == op or k.startswith(op + "."))
+                for op in ("FADD", "FMNMX", "LDS", "LDL", "STL", "LDGSTS")}
+        pick["LDS.128"] = counts.get("LDS.128", 0)
+        pick["arithmetic_share_of_FADD_FMNMX_LDS"] = (pick["FADD"] + pick["FMNMX"]) / max(
+            1, pick["FADD"] + pick["FMNMX"] + pick["LDS"])
+        out[name] = pick
+        if "tile" in name and (pick["FMNMX"] < 64 or pick["LDL"] or pick["STL"] or not pick["LDS.128"]):
+            raise AssertionError(f"{name}: SASS is not the FADD/FMNMX loop on LDS.128 without spills: {pick}")
+    return out
 
 
 def neumann_hops_used(w, b, hops, tol, transpose):
@@ -167,6 +215,7 @@ def phase1(scen, build, stacked256):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
     from repro_torch.core import forwarding_update, stack_single, stage_traffic, structured_init
+    from repro_torch.core.flow import _source_injection, _stage_gates
     from repro_torch.core.placement import zero_load_dp
     from repro_torch.kernels.minplus import (
         apsp, minplus_matmul, minplus_matmul_argmin, minplus_matmul_argmin_ref,
@@ -175,7 +224,7 @@ def phase1(scen, build, stacked256):
     from repro_torch.kernels.neumann import (
         effective_hops, neumann_propagate, neumann_propagate_ref, neumann_solve,
     )
-    from repro_torch.kernels.neumann.ops import _rows_variant
+    from repro_torch.kernels.neumann.ops import _cols_cluster, _rows_cluster, _variant
 
     rows, summary = [], {}
 
@@ -186,8 +235,8 @@ def phase1(scen, build, stacked256):
         if headline:
             s.update({k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
 
-    def bound(bytes_, ops_):
-        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S
+    def bound(bytes_, ops_, rate=FP32_OPS_PER_S):
+        t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / rate
         return {"bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
 
     rc64 = stack_single(scen.random_connected(64, 24, seed=0))
@@ -203,67 +252,112 @@ def phase1(scen, build, stacked256):
     for v, prob, headline in cases:
         state = forwarding_update(prob, structured_init(prob), t_phi=2)
         hops = effective_hops(prob.hop_bound, v, fixed_loop=True)
-        # Stage 1 (partition-1 host -> partition-2 host) as the traffic scan
-        # solves it: operators [B, A, V, V] as a strided view of phi, and the
-        # right-hand side gate * t_0.
-        w = state.phi[..., 1, :, :]
-        b = (state.x[..., 0, :] * stage_traffic(prob, state)[..., 0, :]).contiguous()
-        n_ops = b.numel() // v
-        for dt in (torch.float32, torch.bfloat16) if v == 1280 else (torch.float32,):
-            wd = w if dt == torch.float32 else w.to(dt)
-            for transpose, name in ((True, "neumann_cols"), (False, "neumann_rows")):
-                got = neumann_propagate(wd, b, hops=hops, transpose=transpose)
-                want = neumann_propagate_ref(wd, b, hops, 1e-6, transpose)
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                if not err <= NEUMANN_RTOL * scale:
-                    raise AssertionError(f"{name} V={v} {dt}: max err {err} > {NEUMANN_RTOL} * {scale}")
-                if dt == torch.bfloat16:  # bf16 operands vs the fp32 solve
-                    exact = neumann_propagate_ref(w, b, hops, 1e-6, transpose)
-                    dev_ = (got - exact).abs().max().item()
-                    if not dev_ <= BF16_TOL * exact.abs().max().item():
-                        raise AssertionError(f"{name} V={v} bf16 vs fp32: {dev_}")
-                    if bool((got[exact == 0] != 0).any()):
-                        raise AssertionError(f"{name} V={v} bf16: exact zeros not kept")
-                used = neumann_hops_used(wd, b, hops, 1e-6, transpose)
-                esize = wd.element_size()
-                reps = 20 if v <= 256 else 5
-                variant = {} if transpose else {"variant": _rows_variant(v, esize)}
-                keep(name, {
-                    "kernel": name, "shape": f"N={n_ops} V={v} {str(dt)[6:]}", **variant, "hops_cap": hops,
-                    "hops_used_mean": used / n_ops, "max_abs_err": err,
-                    "ms": cuda_ms(lambda: neumann_propagate(wd, b, hops=hops, transpose=transpose), reps),
-                    "plain_ms": cuda_ms(lambda: neumann_propagate_ref(wd, b, hops, 1e-6, transpose), 2, 1),
-                    **bound(n_ops * v * v * esize + 2 * n_ops * v * 4, 2 * v * v * used),
-                    "library_ms": None,
-                }, headline and dt == torch.float32)
-        if v == 256:  # backward: the transpose solve through the kernel
-            bb = b.clone().requires_grad_(True)
-            x = neumann_solve(w.mT, bb, hops=hops)
-            g = torch.rand_like(x)
-            (x * g).sum().backward()
-            want = neumann_propagate_ref(w, g, hops, 1e-6, False)
-            err = (bb.grad - want).abs().max().item()
-            if not err <= NEUMANN_RTOL * want.abs().max().item():
-                raise AssertionError(f"neumann backward V={v}: max err {err}")
-            rows.append({"kernel": "neumann_rows", "shape": f"backward N={n_ops} V={v}",
-                         "variant": _rows_variant(v, 4), "max_abs_err": err})
-        del state, w, b
+        # The traffic scan's solves: stage k's operators [B, A, V, V] as a
+        # strided view of phi against inject_k + gate_k * t_{k-1}. Stage 1
+        # (partition-1 host -> partition-2 host) heads the kernels line, as
+        # in earlier runs; at V = 256 stages 0 (1 hop) and 2 (the most hops)
+        # run too.
+        t = stage_traffic(prob, state)
+        inject, gates = _source_injection(prob), _stage_gates(state, prob.apps)
+        for k in (1, 0, 2) if v == 256 else (1,):
+            w = state.phi[..., k, :, :]
+            t_prev = t[..., k - 1, :] if k else torch.zeros_like(t[..., 0, :])
+            b = (inject[..., k, :] + gates[..., k, :] * t_prev).contiguous()
+            n_ops = b.numel() // v
+            for dt in (torch.float32, torch.bfloat16) if v == 1280 else (torch.float32,):
+                wd = w if dt == torch.float32 else w.to(dt)
+                for transpose, name in ((True, "neumann_cols"), (False, "neumann_rows")):
+                    got = neumann_propagate(wd, b, hops=hops, transpose=transpose)
+                    want = neumann_propagate_ref(wd, b, hops, 1e-6, transpose)
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    if not err <= NEUMANN_RTOL * scale:
+                        raise AssertionError(f"{name} V={v} stage {k} {dt}: max err {err} > {NEUMANN_RTOL} * {scale}")
+                    if dt == torch.bfloat16:  # bf16 operands vs the fp32 solve
+                        exact = neumann_propagate_ref(w, b, hops, 1e-6, transpose)
+                        dev_ = (got - exact).abs().max().item()
+                        if not dev_ <= BF16_TOL * exact.abs().max().item():
+                            raise AssertionError(f"{name} V={v} bf16 vs fp32: {dev_}")
+                        if bool((got[exact == 0] != 0).any()):
+                            raise AssertionError(f"{name} V={v} bf16: exact zeros not kept")
+                    del got, want
+                    used = neumann_hops_used(wd, b, hops, 1e-6, transpose)
+                    esize = wd.element_size()
+                    reps = 20 if v <= 256 else 5
+                    variant = _variant(*(_cols_cluster(v) if transpose else _rows_cluster(v, esize)))
+                    # The dense LU solve of the same systems, on a prebuilt
+                    # I - M: the reference's `lu_solve_ref`, a yardstick and
+                    # not the same hop-capped function.
+                    lhs = torch.eye(v, device="cuda") - (wd.float().mT if transpose else wd.float())
+                    keep(name, {
+                        "kernel": name, "shape": f"N={n_ops} V={v} {str(dt)[6:]} stage {k}", "variant": variant,
+                        "hops_cap": hops, "hops_used_mean": used / n_ops, "max_abs_err": err,
+                        "ms": cuda_ms(lambda: neumann_propagate(wd, b, hops=hops, transpose=transpose), reps),
+                        "plain_ms": cuda_ms(lambda: neumann_propagate_ref(wd, b, hops, 1e-6, transpose), 2, 1),
+                        **bound(n_ops * v * v * esize + 2 * n_ops * v * 4, 2 * v * v * used),
+                        "library_ms": cuda_ms(lambda: torch.linalg.solve(lhs, b[..., None]), 2, 1),
+                    }, headline and dt == torch.float32 and k == 1)
+                    del lhs
+            if v == 256 and k == 1:  # backward: the transpose solve through the kernel
+                bb = b.clone().requires_grad_(True)
+                x = neumann_solve(w.mT, bb, hops=hops)
+                g = torch.rand_like(x)
+                (x * g).sum().backward()
+                want = neumann_propagate_ref(w, g, hops, 1e-6, False)
+                err = (bb.grad - want).abs().max().item()
+                if not err <= NEUMANN_RTOL * want.abs().max().item():
+                    raise AssertionError(f"neumann backward V={v}: max err {err}")
+                rows.append({"kernel": "neumann_rows", "shape": f"backward N={n_ops} V={v}",
+                             "variant": _variant(*_rows_cluster(v, 4)), "max_abs_err": err})
+                del bb, x, g, want
+        del state, w, b, t, inject, gates
         torch.cuda.empty_cache()
+
+    # Past 256 column quads a CTA (V > 8192) a neumann_cols thread sums
+    # several quads: held to its plain version on a sparse operator, not timed.
+    v, hops = 8200, 4
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.rand(1, v, v, generator=gen, device="cuda")
+    w = torch.where(torch.rand(1, v, v, generator=gen, device="cuda") < 1e-3, w, 0.0).triu(1)
+    b = torch.rand(1, v, generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        wd = w.to(dt)
+        got, want = neumann_propagate(wd, b, hops=hops, transpose=True), neumann_propagate_ref(wd, b, hops, 1e-6, True)
+        err = (got - want).abs().max().item()
+        if not err <= NEUMANN_RTOL * want.abs().max().item():
+            raise AssertionError(f"neumann_cols V={v} {dt}: max err {err}")
+        keep("neumann_cols", {"kernel": "neumann_cols", "shape": f"N=1 V={v} {str(dt)[6:]}",
+                              "variant": _variant(*_cols_cluster(v)), "hops_cap": hops, "max_abs_err": err}, False)
+        del wd, got, want
+    del w, b
+    torch.cuda.empty_cache()
 
     # Min-plus: the APSP squaring product d (x) d and the next-hop argmin
     # (w, dist) on each batch's zero-load metric, plus an integer-weight
-    # batch whose exact ties pin the first-minimum rule.
+    # batch whose exact ties pin the first-minimum rule; V = 17 (the paper's
+    # iot) and V = 200 are ragged against the 128 x 128 tile, and one
+    # integer product is ragged in all of M, K and N.
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for v, prob, headline in ((64, rc64, False), (256, stacked256, True), (1024, rc1024, False)):
-        w = zero_load_dp(prob)
-        eye = torch.eye(v, dtype=torch.bool, device="cuda")
-        d = torch.where(eye, 0.0, w)
-        dist = apsp(w)
-        ints = torch.randint(1, 5, w.shape, generator=gen, device="cuda").float()
-        ints = torch.where(torch.rand(w.shape, generator=gen, device="cuda") < 0.5, ints, 1e18)
-        nb = w.shape[0]
-        for tag, a_, b_ in (("apsp", d, d), ("nexthop", w, dist), ("integer ties", ints, ints)):
+
+    def integers(shape):
+        ints = torch.randint(1, 5, shape, generator=gen, device="cuda").float()
+        return torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5, ints, 1e18)
+
+    mp_cases = [
+        (17, stack_single(scen.iot()), False), (64, rc64, False),
+        (200, stack_single(scen.random_connected(200, 8, seed=2)), False), (256, stacked256, True),
+        (1024, rc1024, False), (None, None, False),
+    ]
+    for v, prob, headline in mp_cases:
+        if prob is None:
+            products = [("ragged integer ties", integers((3, 130, 200)), integers((3, 200, 129)))]
+        else:
+            w = zero_load_dp(prob)
+            eye = torch.eye(v, dtype=torch.bool, device="cuda")
+            d = torch.where(eye, 0.0, w)
+            products = [("apsp", d, d), ("nexthop", w, apsp(w)), ("integer ties", integers(w.shape), integers(w.shape))]
+        for tag, a_, b_ in products:
+            (nb, m, kk), nn = a_.shape, b_.shape[-1]
             for name in ("minplus", "minplus_argmin"):
                 if name == "minplus":
                     fn = lambda: minplus_matmul(a_, b_)  # noqa: E731
@@ -280,18 +374,22 @@ def phase1(scen, build, stacked256):
                     ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
                     err = (got[0] - want[0]).abs().max().item()
                 if not ok:
-                    raise AssertionError(f"{name} V={v} {tag}: not bitwise equal to the plain version")
+                    raise AssertionError(f"{name} {tuple(a_.shape)} (x) {tuple(b_.shape)} {tag}: "
+                                         "not bitwise equal to the plain version")
                 del got, want
-                row = {"kernel": name, "shape": f"B={nb} V={v} {tag}", "max_abs_err": err}
-                if tag != "integer ties":
-                    out_bytes = nb * v * v * (12 if name == "minplus_argmin" else 4)
+                shape = f"B={nb} V={v} {tag}" if v else f"B={nb} M={m} K={kk} N={nn} {tag}"
+                row = {"kernel": name, "shape": shape, "max_abs_err": err}
+                if "integer" not in tag:
+                    out_bytes = nb * m * nn * (12 if name == "minplus_argmin" else 4)
+                    instructions = (4 if name == "minplus_argmin" else 2) * nb * m * kk * nn
                     row.update({
-                        "ms": cuda_ms(fn, 10 if v <= 256 else 3),
+                        "ms": cuda_ms(fn, 10 if m <= 256 else 3),
                         "plain_ms": cuda_ms(plain, 2, 1),
-                        **bound(2 * nb * v * v * 4 + out_bytes, 2 * nb * v ** 3),
+                        **bound(4 * (a_.numel() + b_.numel()) + out_bytes, instructions, FP32_ISSUE_PER_S),
                         "library_ms": cuda_ms(lib, 2, 1),
                     })
                 keep(name, row, headline and tag == ("apsp" if name == "minplus" else "nexthop"))
+        del products
         torch.cuda.empty_cache()
     build.reset_launches()
     emit({"phase": 1, "name": "kernels_vs_plain", "rows": rows})
@@ -447,11 +545,14 @@ def phase3(core, pad, counter, stacked, lane0):
     out = counter.run(lambda: core.engine_solve(stacked, **kw))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches, rows_variants = counter.last, counter.last_variants["neumann_rows"]
-    # Every cost-to-go solve runs on a cluster that keeps its operator resident.
-    if not rows_variants or sum(rows_variants.values()) != launches["neumann_rows"] or not all(
-            k.endswith("_resident") and int(k[1:k.index("_")]) > 1 for k in rows_variants):
-        raise AssertionError(f"phase 3: neumann_rows variants {rows_variants}")
+    launches = counter.last
+    # Every traffic and cost-to-go solve runs on a cluster of more than one
+    # CTA that keeps its operator on chip for the whole solve.
+    variants = {k: counter.last_variants[k] for k in ("neumann_cols", "neumann_rows")}
+    for name, by in variants.items():
+        if not by or sum(by.values()) != launches[name] or not all(
+                k.endswith("_resident") and int(k[1:k.index("_")]) > 1 for k in by):
+            raise AssertionError(f"phase 3: {name} variants {by}")
     J, hist = out["J"], out["history"]
     if J.shape != (64,) or not bool(torch.isfinite(J).all()):
         raise AssertionError("phase 3: J not finite or wrong shape")
@@ -494,14 +595,14 @@ def phase3(core, pad, counter, stacked, lane0):
     }
     split["profile"] = profile(
         one_round, {"neumann_rows": ("neumann_rows_kernel",), "neumann_cols": ("neumann_cols_kernel",),
-                    "minplus": ("minplus_kernel",)}, sum(split.values())
+                    "minplus": ("minplus_tile_kernel", "minplus_argmin_kernel")}, sum(split.values())
     )
     emit({
         "phase": 3, "B": 64, "V": 256, "A": 32, "K": 3, **kw,
         "rounds": out["rounds"], "wall_s": wall, "ms_per_round": 1e3 * wall / max(out["rounds"], 1),
         "peak_gb": peak / 1e9, "J_mean": J.mean().item(), "conservation_rel": cons,
         "lane0_rel_vs_B1": rel0, "lane0_same_hosts": same_hosts, "launches": launches,
-        "neumann_rows_variants": rows_variants, "split": split,
+        "neumann_variants": variants, "split": split,
     })
 
 
@@ -740,13 +841,21 @@ def main() -> int:
     card = gpu_line()
     t0 = time.perf_counter()
     libs = _build.build_all()
-    hgmma = sass_count(libs["flash_attention"], "HGMMA")
+    flash_ops, minplus_ops = sass_opcodes(libs["flash_attention"]), sass_opcodes(libs["minplus"])
+    hgmma = None if flash_ops is None else sum(
+        n for fn in flash_ops.values() for op, n in fn.items() if op.startswith("HGMMA"))
     if hgmma == 0:
         raise AssertionError("the flash library holds no HGMMA (wgmma) instruction")
+    ptxas = {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}
     emit({"phase": 0, "name": "build", "build_s": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "flash_hgmma_instructions": "not measured (no cuobjdump)" if hgmma is None else hgmma,
-          "ptxas": {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}})
+          "minplus_sass": "not measured (no cuobjdump)" if minplus_ops is None else minplus_sass(minplus_ops),
+          "ptxas": ptxas})
+    # neumann_cols rests on its operands staying in registers between hops.
+    spills = [ln for ln in ptxas["neumann"] if ln.startswith("neumann_cols_kernel") and "spill" in ln]
+    if spills:
+        raise AssertionError(f"neumann_cols_kernel spills: {spills}")
 
     problems = [scen.random_connected(256, 32, seed=s) for s in range(64)]
     stacked = pad.stack_problems(problems)

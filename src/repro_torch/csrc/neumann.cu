@@ -18,37 +18,65 @@
 // Both kernels are bound by bytes: every hop is 2 flops per operand element,
 // far below the ~20 flop/byte ridge of fp32 CUDA cores. The bound counts one
 // read of each operator; what matters is how often a kernel goes back to
-// L2/HBM for it.
+// L2/HBM for it. Both split each operator over a thread-block cluster of C
+// CTAs (C in {1, 2, 4, 8}, chosen by the caller from V alone:
+// kernels/neumann/ops.py `_rows_cluster`, `_cols_cluster`), grid = N * C,
+// keep the operator on chip for the whole solve where the cluster can hold
+// it, and exchange x_new through distributed shared memory (DSMEM) with one
+// cluster barrier a hop. x and the residual pairs are double-buffered by hop
+// parity, so that barrier orders every read and write; every warp reduces the
+// same pairs in the same order, so the break is uniform over the cluster.
 //
 // neumann_cols (M = W^T, the traffic solve (I - Phi^T) t = b):
-//   x_new[i] = b[i] + sum_j W[j, i] x[j]; one block per operator, one thread
-//   per column i, so a warp reads 32 consecutive floats of row j per step
-//   (coalesced). W is staged in shared memory when V^2 fits in 48 KB (the
-//   paper's V <= 64 topologies); otherwise every hop reads it from L2/HBM.
+//   x_new[i] = b[i] + sum_j W[j, i] x[j]. What bounds it on the main path is
+//   the one stream of W from HBM: the traffic scan's solves stop after 1-6
+//   hops (1.2 on average at stage 1), so hop 1 is most of the work. CTA c
+//   owns columns [c R, (c + 1) R) of W; its thread (g, q) owns rows
+//   [g P, (g + 1) P) of column quad q and loads the first 16 of them
+//   straight into registers as 16-byte (fp32) or 8-byte (bf16) vectors, all
+//   in flight at once: at V = 256, C = 4 that is 16 rows x 4 columns a
+//   thread, 64 KB a CTA, two CTAs and 128 KB in flight an SM, so the load IS
+//   hop 1 (no staging through shared memory, no barrier before the first
+//   product). Where the layout is resident, the operands stay in registers
+//   for every later hop: 64 FMAs a thread against the group's 16 x[j], read
+//   from shared memory as four 16-byte broadcasts. The row groups' partial
+//   sums meet in shared memory, and group 0's thread of each quad adds them
+//   and writes the quad's x_new to every CTA.
+//   Where a row group has more than 16 rows (V > 128 on one CTA, V > 256 on
+//   8), the layout is streamed (`resident` = 0): a thread keeps no rows and
+//   reads all of them from L2 on every hop, 8 loads in flight, so the
+//   phase-4 operators (4 x 4 MB at V = 1024) stay in the 50 MB L2 and run
+//   on 32 SMs instead of 4. Past 256 quads a CTA (V > 8192) a thread also
+//   sums quads q + 256, ... from L2; the two iterates in shared memory then
+//   bound V at 28928. Where V % 4 != 0 (the paper's topologies, one CTA)
+//   operands are read one by one. Registers: the resident instances use
+//   the 128 that two CTAs an SM allow (64 of them operands) and spill
+//   nothing, which phase 0 of chip_smoke.py checks; the group-sum loop is
+//   unrolled by two only, as four more in flight spilled.
+//   What holds it back (N = 2048, V = 256, chip_smoke.py phase 1, PERF.md):
+//   at one hop it streams W at about 83% of the HBM rate, because a CTA's
+//   memory traffic stops while it reduces and crosses the cluster barrier;
+//   each later hop is latency-bound the same way (about 0.065 ms a hop over
+//   the 2048 operators, stage 2 against stage 1). Persistent
+//   clusters that prefetched the next operator by cp.async during the
+//   current solve streamed slightly faster at one hop but lost more to load
+//   imbalance where hop counts vary, and 128-thread CTAs on clusters of 8
+//   were slower.
 //
 // neumann_rows (M = W, the cost-to-go solve (I - Phi) q = c):
 //   x_new[i] = b[i] + sum_j W[i, j] x[j]. The TPU kept W in VMEM for the
 //   whole solve; one Hopper block's 227 KB cannot hold a 256 KB operator, but
-//   a thread-block cluster can. Each operator's rows are split over a
-//   cluster of C CTAs (C in {1, 2, 4, 8}, chosen by the caller from V and the
-//   operand size: kernels/neumann/ops.py `_rows_cluster`), grid = N * C. A
-//   CTA loads its ceil(V / C) rows of W into shared memory once, with bulk
-//   async copies (`cp.async.bulk` on an mbarrier), and keeps them for the
-//   whole solve: at V = 256 fp32, C = 4 that is 64 KB a CTA, so three CTAs
-//   share an SM and one CTA's load overlaps another's hops. Each hop a warp
-//   takes 8 of the CTA's rows against the CTA's full copy of x (each x[j]
-//   read from shared memory serves 8 products, 4 columns a lane a load where
-//   V % 4 == 0), reduces the 8 dot products across the warp in 9 shuffles,
-//   and its lanes write the 8 values into every CTA's next x buffer through
-//   distributed shared memory. Each warp also hands its part of the
-//   residual pair (r, s) to every CTA, and the CTAs meet at `cluster.sync()`,
-//   the hop's only barrier. Every warp then reduces the same C x 8 pairs and
-//   takes the same break decision. x and the pairs are double-buffered by
-//   hop parity, so one cluster barrier a hop orders all reads and writes.
+//   a cluster can. A CTA loads its ceil(V / C) rows of W into shared memory
+//   once, with bulk async copies (`cp.async.bulk` on an mbarrier), and keeps
+//   them for the whole solve: at V = 256 fp32, C = 4 that is 64 KB a CTA, so
+//   three CTAs share an SM and one CTA's load overlaps another's hops. Each
+//   hop a warp takes 8 of the CTA's rows against the CTA's full copy of x
+//   (each x[j] read from shared memory serves 8 products, 4 columns a lane a
+//   load where V % 4 == 0), reduces the 8 dot products across the warp in 9
+//   shuffles, and its lanes write the 8 values into every CTA's next x buffer.
 //   Where even C = 8 cannot hold the rows (V > 664 in fp32), the same split
 //   streams each CTA's row block from L2 on every hop instead
-//   (`resident` = 0): the phase-4 operators (4 x 4 MB at V = 1024) fit in
-//   the 50 MB L2 and run on 4 * 8 SMs instead of 4.
+//   (`resident` = 0).
 //   What holds it back (N = 2048, V = 256: 0.67 ms on an H100, 4.1x the
 //   bound; chip_smoke.py phase 1): each hop re-reads the CTA's 64 KB of W
 //   from shared memory, and with three CTAs an SM the hops are
@@ -66,7 +94,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kSmemW = 48 * 1024;  // neumann_cols stages W in shared memory up to this size
 constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -75,104 +102,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // max that propagates NaN like jnp.max (fmaxf would drop it).
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || b != b) ? NAN : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide max of two values; every thread gets both results.
-// red: 2 * 32 + 2 floats of shared memory. blockDim.x is a multiple of 32.
-__device__ __forceinline__ void block_max2(float& r, float& s, float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    r = nanmax(r, __shfl_xor_sync(0xffffffffu, r, o));
-    s = nanmax(s, __shfl_xor_sync(0xffffffffu, s, o));
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  if (lane == 0) {
-    red[warp] = r;
-    red[32 + warp] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    r = lane < nw ? red[lane] : 0.f;  // |.| >= 0, so 0 is the identity
-    s = lane < nw ? red[32 + lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) {
-      r = nanmax(r, __shfl_xor_sync(0xffffffffu, r, o));
-      s = nanmax(s, __shfl_xor_sync(0xffffffffu, s, o));
-    }
-    if (lane == 0) {
-      red[64] = r;
-      red[65] = s;
-    }
-  }
-  __syncthreads();
-  r = red[64];
-  s = red[65];
-}
-
-// ---------------------------------------------------------------------------
-// neumann_cols: one block per operator.
-template <typename T>
-__global__ void neumann_cols_kernel(const T* __restrict__ W, long long w_bstride,
-                                    const float* __restrict__ B, float* __restrict__ X, int V,
-                                    int hops, float tol, int stage_w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* x = reinterpret_cast<float*>(smem);
-  float* xn = x + V;
-  float* red = xn + V;                     // 66 floats
-  T* ws = reinterpret_cast<T*>(red + 68);  // V*V operands if staged
-
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const T* wg = W + (long long)n * w_bstride;
-  const float* b = B + (long long)n * V;
-
-  for (int i = tid; i < V; i += nt) x[i] = b[i];
-  const T* w = wg;
-  if (stage_w) {
-    for (int e = tid; e < V * V; e += nt) ws[e] = wg[e];
-    w = ws;
-  }
-  __syncthreads();
-
-  for (int h = 0; h < hops; ++h) {
-    for (int i = tid; i < V; i += nt) {
-      float acc = 0.f;
-      for (int j = 0; j < V; ++j) acc += to_f32(w[(long long)j * V + i]) * x[j];
-      xn[i] = b[i] + acc;
-    }
-    __syncthreads();
-    float r = 0.f, s = 0.f;
-    for (int i = tid; i < V; i += nt) {
-      r = nanmax(r, fabsf(xn[i] - x[i]));
-      s = nanmax(s, fabsf(xn[i]));
-    }
-    block_max2(r, s, red);  // ends with a barrier: every xn[i] is final
-    for (int i = tid; i < V; i += nt) x[i] = xn[i];
-    __syncthreads();
-    if (r <= tol * (s + 1e-30f)) break;  // uniform: r, s are block-wide
-  }
-  for (int i = tid; i < V; i += nt) X[(long long)n * V + i] = x[i];
-}
-
-template <typename T>
-cudaError_t launch_cols(const T* w, long long w_bstride, const float* b, float* x, int n, int v,
-                        int hops, float tol, cudaStream_t stream) {
-  const int threads = min(1024, max(32, ((v + 31) / 32) * 32));
-  const size_t w_bytes = (size_t)v * v * sizeof(T);
-  const int stage_w = w_bytes <= (size_t)kSmemW;
-  const size_t smem = (2 * (size_t)v + 68) * sizeof(float) + (stage_w ? w_bytes : 0);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(neumann_cols_kernel<T>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  neumann_cols_kernel<T><<<n, threads, smem, stream>>>(w, w_bstride, b, x, v, hops, tol, stage_w);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -353,22 +282,241 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   for (int i = tid; i < nr; i += blockDim.x) X[(long long)n * V + r0 + i] = xb[cur * V + r0 + i];
 }
 
+// ---------------------------------------------------------------------------
+// neumann_cols: one cluster of C CTAs per operator, each CTA R columns.
+
+constexpr int kColThreads = 256;  // threads of a neumann_cols CTA
+constexpr int kColWarps = kColThreads / 32;
+constexpr int kColRegRows = 16;  // rows of its column quad that a thread keeps in registers
+constexpr int kStreamUnroll = 8;  // L2 loads in flight a thread where the layout is streamed
+
+// Shared memory of one CTA, in bytes: the residual pairs
+// [2][kMaxCluster * kColWarps][2] floats at 0, x[2][V] floats from kColsX,
+// then the partial sums of row groups 1..G-1, red[G - 1][min(Q, kColThreads)]
+// float4s, 16-byte aligned. b stays in global memory, so that the iterates
+// alone bound V, as they did for the one-block kernel this replaced.
+constexpr int kColsX = 4 * kMaxCluster * kColWarps * sizeof(float);
+__host__ __device__ constexpr size_t cols_red_offset(int v) {
+  return (kColsX + 2 * (size_t)v * sizeof(float) + 15) / 16 * 16;
+}
+__host__ __device__ constexpr size_t cols_smem(int v, int groups, int quad_slots) {
+  return cols_red_offset(v) + (size_t)(groups - 1) * quad_slots * sizeof(float4);
+}
+
+// Four consecutive operands of one row as they are loaded: 16 bytes of fp32
+// or 8 of bf16, converted to fp32 where they are used.
 template <typename T>
-cudaError_t launch_rows(const T* w, long long w_bstride, const float* b, float* x, int n, int v,
-                        int hops, float tol, int cluster, int resident, cudaStream_t stream) {
+struct Quad;
+template <>
+struct Quad<float> {
+  using type = float4;
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 quad_f32(float4 v) { return v; }
+__device__ __forceinline__ float4 quad_f32(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// The first `n` (1..4) operands at p one by one, zeros after them.
+__device__ __forceinline__ float4 load_quad_scalar(const float* p, int n) {
+  return make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f, n > 3 ? p[3] : 0.f);
+}
+__device__ __forceinline__ uint2 load_quad_scalar(const __nv_bfloat16* p, int n) {
+  const __nv_bfloat16 z = __ushort_as_bfloat16(0);
+  __nv_bfloat162 lo = __halves2bfloat162(p[0], n > 1 ? p[1] : z);
+  __nv_bfloat162 hi = __halves2bfloat162(n > 2 ? p[2] : z, n > 3 ? p[3] : z);
+  return make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// VEC: one aligned 16-byte (fp32) or 8-byte (bf16) load of the whole quad.
+template <typename T, bool VEC>
+__device__ __forceinline__ typename Quad<T>::type load_quad(const T* p, int n) {
+  if (VEC) return *reinterpret_cast<const typename Quad<T>::type*>(p);
+  return load_quad_scalar(p, n);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, const float4 w, float x) {
+  acc.x += w.x * x;
+  acc.y += w.y * x;
+  acc.z += w.z * x;
+  acc.w += w.w * x;
+}
+
+// Split cluster barrier: `relaxed` orders no memory, it only says that this
+// CTA runs (so its shared memory may be written through DSMEM).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// VEC: V % 4 == 0 and W aligned, so quads and x take vector loads.
+// RESIDENT: every row group's rows fit the registers, so there is no L2 path.
+template <typename T, bool VEC, bool RESIDENT>
+__global__ void __launch_bounds__(kColThreads, 2)
+    neumann_cols_kernel(const T* __restrict__ W, long long w_bstride, const float* __restrict__ B,
+                        float* __restrict__ X, int V, int R, int P, int hops, float tol) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* pairs = reinterpret_cast<float*>(smem);
+  float* xb = reinterpret_cast<float*>(smem + kColsX);  // x[2][V]
+  float4* red = reinterpret_cast<float4*>(smem + cols_red_offset(V));
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n = blockIdx.x / C;
+  const int c0 = rank * R, nc = max(0, min(V, c0 + R) - c0);
+  // Thread (g, q) owns column quad q (columns c0 + 4q .. + 3) in row group g
+  // (rows g P .. g P + P - 1): a warp's lanes read consecutive quads of a
+  // row, so each load instruction reads whole rows of the column block, and
+  // the group's x[j] sit side by side. Past kColThreads quads (G = 1) thread
+  // q also takes quads q + QT, q + 2 QT, ..., from L2 when it sums them.
+  const int Q = (R + 3) / 4, QT = min(Q, kColThreads), G = kColThreads / QT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = tid % QT, g = tid / QT;
+  const int GU = min(G, (V + P - 1) / P);  // the groups that hold rows
+  const bool active = g < GU && 4 * q < nc;
+  const int ncols = min(4, nc - 4 * q);
+  const int nrows = active && hops > 0 ? min(P, V - g * P) : 0;
+  const T* wblk = W + (long long)n * w_bstride + c0;  // this CTA's column block
+  const T* wq = wblk + (long long)g * P * V + 4 * q;
+  const float* bg = B + (long long)n * V;
+
+  // Resident, the block's one read from HBM: every load of a thread's rows
+  // is in flight before the first is used, and the operands stay in
+  // registers for every hop. Streamed, no rows are kept: the registers go
+  // to L2 loads in flight instead.
+  constexpr int kRegs = RESIDENT ? kColRegRows : 0;
+  typename Quad<T>::type w[RESIDENT ? kColRegRows : 1];
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r)
+    if (r < nrows) w[r] = load_quad<T, VEC>(wq + (long long)r * V, ncols);
+  for (int i = tid; i < V; i += kColThreads) xb[i] = bg[i];
+  cluster_arrive_relaxed();  // waited for just before the first DSMEM write
+  __syncthreads();           // x_0 = b is in place
+
+  int cur = 0;
+  for (int h = 0; h < hops; ++h) {
+    const float* x = xb + cur * V;
+    const float* xg = x + g * P;  // this group's rows of x
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (active) {  // hop 1 consumes the operands as they land
+      if (VEC) {   // P and the group's rows come in whole quads: x by 16-byte loads
+#pragma unroll
+        for (int r = 0; r < kRegs; r += 4)
+          if (r < nrows) {
+            const float4 xr = *reinterpret_cast<const float4*>(xg + r);
+            fma4(acc, quad_f32(w[r]), xr.x);
+            fma4(acc, quad_f32(w[r + 1]), xr.y);
+            fma4(acc, quad_f32(w[r + 2]), xr.z);
+            fma4(acc, quad_f32(w[r + 3]), xr.w);
+          }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kRegs; ++r)
+          if (r < nrows) fma4(acc, quad_f32(w[r]), xg[r]);
+      }
+      if (!RESIDENT)
+#pragma unroll kStreamUnroll
+        for (int r = 0; r < nrows; ++r)  // from L2 on every hop
+          fma4(acc, quad_f32(load_quad<T, VEC>(wq + (long long)r * V, ncols)), xg[r]);
+      if (g > 0) red[(g - 1) * QT + q] = acc;
+    }
+    if (GU > 1) __syncthreads();
+    if (h == 0) cluster_wait();  // every CTA of the cluster runs
+    // Group 0's thread of each quad adds the other groups' partial sums and
+    // b, writes the quad's x_new to every CTA and takes it into its part of
+    // the residual pair.
+    float* nxt = xb + (cur ^ 1) * V;
+    float r = 0.f, s = 0.f;
+    for (int qq = q; g == 0 && 4 * qq < nc; qq += QT) {
+      const int col = 4 * qq, nq = min(4, nc - col);
+      float4 sum = acc;
+      if (RESIDENT || qq == q) {
+#pragma unroll 2
+        for (int k = 0; k < GU - 1; ++k) {
+          const float4 p = red[k * QT + q];
+          sum.x += p.x;
+          sum.y += p.y;
+          sum.z += p.z;
+          sum.w += p.w;
+        }
+      } else {
+        sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll kStreamUnroll
+        for (int j = 0; j < V; ++j) fma4(sum, quad_f32(load_quad<T, VEC>(wblk + (long long)j * V + col, nq)), x[j]);
+      }
+      const float part[4] = {sum.x, sum.y, sum.z, sum.w};
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < nq) {
+          v[k] = bg[c0 + col + k] + part[k];
+          r = nanmax(r, fabsf(v[k] - x[c0 + col + k]));
+          s = nanmax(s, fabsf(v[k]));
+        }
+      for (int d = 0; d < C; ++d) {
+        float* dst = cluster.map_shared_rank(nxt, d) + c0 + col;
+        if (VEC) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k < nq) dst[k] = v[k];
+        }
+      }
+      if (RESIDENT) break;  // at most 256 quads: one a thread
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      r = nanmax(r, __shfl_xor_sync(0xffffffffu, r, o));
+      s = nanmax(s, __shfl_xor_sync(0xffffffffu, s, o));
+    }
+    float* slot = pairs + 2 * kMaxCluster * kColWarps * (h & 1);
+    if (lane < C) {
+      float* dst = cluster.map_shared_rank(slot, lane) + 2 * (rank * kColWarps + warp);
+      dst[0] = r;
+      dst[1] = s;
+    }
+    cluster.sync();  // x_new and every pair are in every CTA
+    r = 0.f;
+    s = 0.f;
+    for (int k = lane; k < C * kColWarps; k += 32) {
+      r = nanmax(r, slot[2 * k]);
+      s = nanmax(s, slot[2 * k + 1]);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      r = nanmax(r, __shfl_xor_sync(0xffffffffu, r, o));
+      s = nanmax(s, __shfl_xor_sync(0xffffffffu, s, o));
+    }
+    cur ^= 1;
+    if (r <= tol * (s + 1e-30f)) break;  // uniform over the cluster
+  }
+  if (hops <= 0) cluster_wait();  // every arrive has its wait
+  for (int i = tid; i < nc; i += kColThreads) X[(long long)n * V + c0 + i] = xb[cur * V + c0 + i];
+}
+
+// ---------------------------------------------------------------------------
+// Launches on clusters of `cluster` CTAs in {1, 2, 4, 8}, n clusters.
+
+template <typename... Params, typename... Args>
+cudaError_t launch_on_clusters(void (*kernel)(Params...), int n, int cluster, int threads, size_t smem,
+                               cudaStream_t stream, Args... args) {
   if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) return cudaErrorInvalidValue;
   if ((long long)n * cluster > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int rows = (v + cluster - 1) / cluster;
-  const size_t smem = rows_w_offset(v) + (resident ? (size_t)rows * v * sizeof(T) : 0);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(neumann_rows_kernel<T>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n * cluster);
-  cfg.blockDim = dim3(kRowWarps * 32);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -378,17 +526,49 @@ cudaError_t launch_rows(const T* w, long long w_bstride, const float* b, float* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, neumann_rows_kernel<T>, w, w_bstride, b, x, v,
-                                           rows, hops, tol, resident);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rows(const T* w, long long w_bstride, const float* b, float* x, int n, int v,
+                        int hops, float tol, int cluster, int resident, cudaStream_t stream) {
+  if (cluster < 1) return cudaErrorInvalidValue;
+  const int rows = (v + cluster - 1) / cluster;
+  const size_t smem = rows_w_offset(v) + (resident ? (size_t)rows * v * sizeof(T) : 0);
+  return launch_on_clusters(neumann_rows_kernel<T>, n, cluster, kRowWarps * 32, smem, stream, w, w_bstride, b,
+                            x, v, rows, hops, tol, resident);
+}
+
+// The column split of kernels/neumann/ops.py `_cols_layout`: R = ceil(V / C)
+// columns a CTA (rounded up to whole quads where V % 4 == 0), Q = ceil(R / 4)
+// quads, G = kColThreads / min(Q, kColThreads) row groups of P = ceil(V / G)
+// rows (whole quads where V % 4 == 0). `resident` must say what the layout
+// gives: every row group's rows fit its registers.
+template <typename T>
+cudaError_t launch_cols(const T* w, long long w_bstride, const float* b, float* x, int n, int v,
+                        int hops, float tol, int cluster, int resident, cudaStream_t stream) {
+  if (cluster < 1 || v < 1) return cudaErrorInvalidValue;
+  int cols = (v + cluster - 1) / cluster;
+  if (v % 4 == 0) cols = (cols + 3) / 4 * 4;
+  const int quads = (cols + 3) / 4, slots = min(quads, kColThreads), groups = kColThreads / slots;
+  int rows = (v + groups - 1) / groups;
+  if (v % 4 == 0) rows = (rows + 3) / 4 * 4;
+  if ((rows <= kColRegRows) != (resident != 0)) return cudaErrorInvalidValue;
+  const size_t smem = cols_smem(v, groups, slots);
+  const bool vec = v % 4 == 0 && w_bstride % 4 == 0 && (uintptr_t)w % (4 * sizeof(T)) == 0;
+  auto* kernel = vec ? (resident ? neumann_cols_kernel<T, true, true> : neumann_cols_kernel<T, true, false>)
+                     : (resident ? neumann_cols_kernel<T, false, true> : neumann_cols_kernel<T, false, false>);
+  return launch_on_clusters(kernel, n, cluster, kColThreads, smem, stream, w, w_bstride, b, x, v, cols, rows, hops,
+                            tol);
 }
 
 template <typename T>
 cudaError_t launch(const void* w, long long w_bstride, const float* b, float* x, int n, int v,
                    int hops, float tol, int cols, int cluster, int resident, cudaStream_t stream) {
   const T* wt = static_cast<const T*>(w);
-  return cols ? launch_cols<T>(wt, w_bstride, b, x, n, v, hops, tol, stream)
+  return cols ? launch_cols<T>(wt, w_bstride, b, x, n, v, hops, tol, cluster, resident, stream)
               : launch_rows<T>(wt, w_bstride, b, x, n, v, hops, tol, cluster, resident, stream);
 }
 
@@ -396,9 +576,11 @@ cudaError_t launch(const void* w, long long w_bstride, const float* b, float* x,
 
 // w: n operators of v x v (row-major, batch stride w_bstride elements),
 // float32 (bf16 == 0) or bfloat16 (bf16 == 1); b, x: [n, v] float32.
-// cols != 0 applies M = W^T (neumann_cols), else M = W (neumann_rows, on
-// clusters of `cluster` CTAs in {1, 2, 4, 8}, holding W in shared memory
-// when `resident` != 0). Returns the launch's CUDA error.
+// cols != 0 applies M = W^T (neumann_cols), else M = W (neumann_rows); both
+// run on clusters of `cluster` CTAs in {1, 2, 4, 8}. `resident` != 0: rows
+// holds its row blocks in shared memory; cols' layout keeps every operand in
+// registers (the launch refuses a flag its layout does not give). Returns the
+// launch's CUDA error.
 extern "C" int neumann_propagate(const void* w, long long w_bstride, const float* b, float* x,
                                  int n, int v, int hops, float tol, int cols, int bf16, int cluster,
                                  int resident, void* stream) {

@@ -2,9 +2,10 @@
 
 `neumann_propagate` is the kernel wrapper: on a CUDA tensor it launches the
 hand-written kernel (csrc/neumann.cu), on a CPU tensor it runs the plain
-version; it never falls back from one to the other. The rows kernel splits
-each operator's rows over a thread-block cluster whose size `_rows_cluster`
-picks from V and the operand size alone. `neumann_solve` is the
+version; it never falls back from one to the other. Both kernels split each
+operator over a thread-block cluster, the rows kernel by rows (its size
+from `_rows_cluster`, on V and the operand size alone), the cols kernel by
+columns (`_cols_cluster`, on V alone). `neumann_solve` is the
 differentiable solve of (I - m) x = b on top of it, a
 `torch.autograd.Function` whose backward is the transpose solve through the
 same kernel (this replaces `jax.lax.custom_linear_solve`).
@@ -41,7 +42,10 @@ LANE = 128
 _ROWS_BUDGET = 64 * 1024
 _CLUSTERS = (1, 2, 4, 8)  # 8: the largest portable cluster
 _SMEM_MAX = 227 * 1024
-_ROW_WARPS = 8  # warps of a neumann_rows CTA (csrc/neumann.cu kRowWarps)
+_WARPS = 8  # warps of a CTA of either kernel (csrc/neumann.cu kRowWarps, kColWarps)
+_COL_THREADS = 32 * _WARPS  # threads of a neumann_cols CTA (kColThreads)
+_COL_REG_ROWS = 16  # rows of its column quad a thread keeps in registers (kColRegRows)
+_PAIRS = 4 * _CLUSTERS[-1] * _WARPS * 4  # bytes of every warp's residual pairs, both parities
 
 
 def _rows_cluster(v: int, esize: int) -> tuple[int, bool]:
@@ -57,29 +61,65 @@ def _rows_cluster(v: int, esize: int) -> tuple[int, bool]:
     return c, _rows_smem(v, esize, c, True) <= _SMEM_MAX
 
 
-def _rows_variant(v: int, esize: int) -> str:
-    """The launch-count name of the rows kernel's variant, e.g. "c4_resident"."""
-    c, resident = _rows_cluster(v, esize)
-    return f"c{c}_{'resident' if resident else 'streamed'}"
-
-
 def _rows_smem(v: int, esize: int, c: int, resident: bool) -> int:
     """Shared memory of one neumann_rows CTA (csrc/neumann.cu
     `rows_w_offset`): every warp's residual pairs, an mbarrier, two
     iterates and b, then the resident row block."""
-    head = -(-(4 * _CLUSTERS[-1] * _ROW_WARPS * 4 + 16 + 12 * v) // 16) * 16
+    head = -(-(_PAIRS + 16 + 12 * v) // 16) * 16
     return head + (-(-v // c) * v * esize if resident else 0)
 
 
-def _check_rows_launch(n: int, v: int, esize: int, c: int, resident: bool) -> None:
-    """What the rows launch needs of its cluster: a size in {1, 2, 4, 8}
-    (which divides the grid of n * C CTAs), a grid within 2^31 - 1 CTAs and
-    shared memory within the 227 KB a CTA can have."""
+def _cols_layout(v: int, c: int) -> tuple[int, int, int, int]:
+    """(R, Q, G, P) of neumann_cols on a cluster of C CTAs (csrc/neumann.cu
+    `launch_cols`): R columns a CTA (ceil(V / C), whole quads of 4 where
+    V % 4 == 0), Q = ceil(R / 4) column quads, G = 256 // min(Q, 256) row
+    groups and P = ceil(V / G) rows a group (whole quads where V % 4 == 0).
+    Thread (g, q) holds rows [g P, (g + 1) P) of quad q; past 256 quads
+    (G = 1) a thread also takes quads q + 256, q + 512, ..."""
+    r = -(-v // c)
+    if v % 4 == 0:
+        r = -(-r // 4) * 4
+    q = -(-r // 4)
+    g = _COL_THREADS // min(q, _COL_THREADS)
+    p = -(-v // g)
+    if v % 4 == 0:
+        p = -(-p // 4) * 4
+    return r, q, g, p
+
+
+def _cols_cluster(v: int) -> tuple[int, bool]:
+    """(C, resident) for neumann_cols on V nodes: the smallest cluster C
+    whose column blocks fit the CTAs' registers (each row group's P rows
+    within `_COL_REG_ROWS`; C = 4 at V = 256, one CTA up to V = 128); else
+    C = 8 with every row read from L2 on every hop. The registers hold the
+    same count of operands in fp32 and bf16."""
+    for c in _CLUSTERS:
+        if _cols_layout(v, c)[3] <= _COL_REG_ROWS:
+            return c, True
+    return _CLUSTERS[-1], False
+
+
+def _cols_smem(v: int, c: int) -> int:
+    """Shared memory of one neumann_cols CTA (`cols_smem`): the residual
+    pairs and two iterates, then the partial sums of row groups 1..G-1."""
+    _, q, g, _ = _cols_layout(v, c)
+    return -(-(_PAIRS + 8 * v) // 16) * 16 + 16 * (g - 1) * min(q, _COL_THREADS)
+
+
+def _variant(c: int, resident: bool) -> str:
+    """The launch-count name of a cluster variant, e.g. "c4_resident"."""
+    return f"c{c}_{'resident' if resident else 'streamed'}"
+
+
+def _check_launch(n: int, v: int, c: int, smem: int) -> None:
+    """What a clustered launch needs: a size in {1, 2, 4, 8} (which divides
+    the grid of n * C CTAs), a grid within 2^31 - 1 CTAs and shared memory
+    within the 227 KB a CTA can have."""
     if c not in _CLUSTERS:
         raise ValueError(f"neumann_propagate: cluster size {c} not in {_CLUSTERS}")
     if n * c > 2**31 - 1:
         raise ValueError(f"neumann_propagate: {n} operators x cluster {c} exceed the grid")
-    if _rows_smem(v, esize, c, resident) > _SMEM_MAX:
+    if smem > _SMEM_MAX:
         raise ValueError(f"neumann_propagate: V={v} needs more than {_SMEM_MAX} bytes of shared memory")
 
 
@@ -129,13 +169,16 @@ def _launch(w, b, hops, tol, transpose) -> torch.Tensor:
     if bstride is None or not b.is_contiguous():
         raise ValueError("neumann_propagate: w's batch dims must share one stride, b contiguous")
     n = b.numel() // v if v else 0
-    c, resident = (1, False) if transpose else _rows_cluster(v, w.element_size())
-    if not transpose:
-        _check_rows_launch(n, v, w.element_size(), c, resident)
-    fn = _build.load("neumann").neumann_propagate
-    out = torch.empty_like(b)
+    out = b.new_empty(b.shape)
     if n == 0:
         return out
+    if transpose:
+        c, resident = _cols_cluster(v)
+        _check_launch(n, v, c, _cols_smem(v, c))
+    else:
+        c, resident = _rows_cluster(v, w.element_size())
+        _check_launch(n, v, c, _rows_smem(v, w.element_size(), c, resident))
+    fn = _build.load("neumann").neumann_propagate
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -148,10 +191,7 @@ def _launch(w, b, hops, tol, transpose) -> torch.Tensor:
             float(tol), int(transpose), int(w.dtype == torch.bfloat16), c, int(resident),
             _build.stream_of(w),
         )
-        if transpose:
-            _build.count("neumann_cols")
-        else:
-            _build.count("neumann_rows", _rows_variant(v, w.element_size()))
+        _build.count("neumann_cols" if transpose else "neumann_rows", _variant(c, resident))
     _build.check(err, "neumann_propagate")
     return out
 

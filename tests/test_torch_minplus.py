@@ -43,7 +43,9 @@ def _eq(got: torch.Tensor, want) -> bool:
     return np.array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("m,k,n,seed", [(24, 24, 24, 0), (17, 40, 9, 1), (72, 72, 72, 2)])
+@pytest.mark.parametrize(
+    "m,k,n,seed", [(24, 24, 24, 0), (17, 40, 9, 1), (72, 72, 72, 2), (130, 200, 129, 3)]
+)
 def test_product_bitwise_vs_jax_ref(m, k, n, seed):
     rng = np.random.RandomState(seed)
     a = rng.uniform(0, 10, (m, k)).astype(np.float32)

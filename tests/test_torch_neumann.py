@@ -24,7 +24,14 @@ from repro_torch.kernels.neumann import (
     neumann_propagate_ref,
     neumann_solve,
 )
-from repro_torch.kernels.neumann.ops import _batch_stride, _rows_cluster, _rows_smem
+from repro_torch.kernels.neumann.ops import (
+    _batch_stride,
+    _cols_cluster,
+    _cols_layout,
+    _cols_smem,
+    _rows_cluster,
+    _rows_smem,
+)
 
 jax.config.update("jax_enable_x64", False)
 
@@ -257,6 +264,82 @@ def test_row_block_split_is_bitwise_the_plain_solve(c):
     for hops in (40, 5):
         got = _row_block_split(m, b, hops, 1e-6, c)
         want = neumann_propagate_ref(m, b, hops)
+        assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert torch.nan_to_num(want).abs().max() < 2**24  # exact in fp32
+
+
+@pytest.mark.parametrize("v", [1, 17, 30, 64, 128, 256, 258, 512, 1024, 1280, 8200, 28928])
+def test_cols_cluster_fits(v):
+    """The cols kernel's cluster: at most 8 CTAs whose column blocks cover V
+    in whole quads, row groups that cover V, every quad with a thread (past
+    256 quads a thread takes several), shared memory within 227 KB, and
+    `resident` exactly when every row group fits its registers."""
+    c, resident = _cols_cluster(v)
+    r, q, g, p = _cols_layout(v, c)
+    assert c in (1, 2, 4, 8) and c * r >= v and 4 * q >= r and g * p >= v
+    assert 1 <= g * min(q, 256) <= 256 and (g == 1 or q <= 256)
+    if v % 4 == 0:
+        assert r % 4 == 0 and p % 4 == 0
+    assert _cols_smem(v, c) <= 227 * 1024
+    assert resident == (p <= 16)
+    if resident and c > 1:  # the smallest cluster whose blocks fit the registers
+        assert _cols_layout(v, c // 2)[3] > 16
+    if v == 256:  # the batched engine's traffic solves
+        assert (c, resident) == (4, True)
+    if v <= 30:  # the paper's topologies: one CTA
+        assert (c, resident) == (1, True)
+    if v >= 1024:  # phase 4 and the tiled kernel's sizes: rows past 16 from L2
+        assert (c, resident) == (8, False)
+    if v == 28928:  # the largest V whose two iterates fit a CTA's shared memory
+        assert _cols_smem(v + 1, 8) > 227 * 1024
+
+
+def _col_block_split(w, b, hops, tol, c):
+    """The cols kernel's schedule on the CPU: CTA k owns a column block of
+    x_new; within it, row group g's thread sums rows [g P, (g + 1) P) of its
+    column quad, group 0 adds the other groups' partial sums in order, and
+    the residual pair is the NaN-propagating max of the blocks' maxima, so
+    every block takes the same break decision."""
+    v = w.shape[-1]
+    r, _, _, p = _cols_layout(v, c)
+    blocks = [slice(c0, min(v, c0 + r)) for c0 in range(0, v, r)]
+
+    def block(x, blk):
+        parts = [(w[..., j:j + p, blk] * x[..., j:j + p, None]).sum(-2) for j in range(0, v, p)]
+        return b[..., blk] + torch.stack(parts).sum(0)
+
+    x = b
+    done = torch.zeros(b.shape[:-1], dtype=torch.bool)
+    for _ in range(hops):
+        x_new = torch.cat([block(x, blk) for blk in blocks], -1)
+        resid = torch.stack([(x_new[..., blk] - x[..., blk]).abs().amax(-1) for blk in blocks]).amax(0)
+        scale = torch.stack([x_new[..., blk].abs().amax(-1) for blk in blocks]).amax(0) + 1e-30
+        x = torch.where(done[..., None], x, x_new)
+        done = done | (resid <= tol * scale)
+        if bool(done.all()):
+            break
+    return x
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("v", [37, 64])
+def test_col_block_split_is_bitwise_the_plain_solve(c, v):
+    """Splitting the columns over a cluster and the rows over row groups
+    changes no bit of the traffic solve (M = W^T): the emulation equals
+    `neumann_propagate_ref` with transpose, including a NaN element that
+    never converges, a zero right-hand side that stops after one hop and a
+    hop cap that cuts the rest short. Integer operators keep every sum
+    exact. V = 37 takes ragged quads, V = 64 whole ones."""
+    rng = np.random.RandomState(23 + c + v)
+    m = np.triu((rng.rand(4, v, v) < 0.08) * rng.randint(1, 3, (4, v, v)), 1).astype(np.float32)
+    m = torch.from_numpy(m)
+    b = torch.from_numpy(rng.randint(0, 4, (4, v)).astype(np.float32))
+    b[1] = 0.0
+    m[2, 9, 5] = float("nan")
+    for hops in (40, 5):
+        got = _col_block_split(m, b, hops, 1e-6, c)
+        want = neumann_propagate_ref(m, b, hops, transpose=True)
         assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
         assert torch.nan_to_num(want).abs().max() < 2**24  # exact in fp32

@@ -216,8 +216,8 @@ def test_kernel_wrappers_validate_cuda_inputs():
 
 def test_kernel_wrappers_validate_variant_rules(monkeypatch):
     """The launch rules of the tensor-core flash kernel and of the clustered
-    rows kernel raise before any launch; inputs outside them take the other
-    kernel, never the plain version."""
+    rows and cols kernels raise before any launch; inputs outside them take
+    the other kernel, never the plain version."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(fa_ops, "attention_ref", _no_plain)
@@ -230,29 +230,58 @@ def test_kernel_wrappers_validate_variant_rules(monkeypatch):
         kv = _FakeCuda(torch.zeros(1, 2, 8, d, dtype=dtype))
         with pytest.raises((ValueError, RuntimeError), match=route):
             fa_ops.flash_attention(q, kv, kv)
+    for v in (8200, 28928):  # past 256 column quads a CTA at C = 8: the launch arguments validate
+        wide = _FakeCuda(torch.empty(1, v, v, dtype=torch.bfloat16, device="meta"))
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ne_ops.neumann_propagate(wide, _FakeCuda(torch.ones(1, v)), hops=3, transpose=True)
+    wide = _FakeCuda(torch.empty(1, 28929, 28929, dtype=torch.bfloat16, device="meta"))  # iterates past 227 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        ne_ops.neumann_propagate(wide, _FakeCuda(torch.ones(1, 28929)), hops=3, transpose=True)
+    for transpose in (False, True):  # V = 0: the empty result, no layout and no launch
+        out = ne_ops.neumann_propagate(_FakeCuda(torch.zeros(2, 0, 0)), _FakeCuda(torch.ones(2, 0)), hops=3,
+                                       transpose=transpose)
+        assert tuple(out.shape) == (2, 0)
     w, b = _FakeCuda(torch.zeros(2, 100, 100)), _FakeCuda(torch.ones(2, 100))
     monkeypatch.setattr(ne_ops, "_rows_cluster", lambda v, esize: (3, True))
     with pytest.raises(ValueError, match="cluster size 3"):
         ne_ops.neumann_propagate(w, b, hops=3)
-    with pytest.raises(RuntimeError, match="needs a CUDA device"):  # cols takes no cluster
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):  # cols has its own cluster
+        ne_ops.neumann_propagate(w, b, hops=3, transpose=True)
+    monkeypatch.setattr(ne_ops, "_cols_cluster", lambda v: (3, True))
+    with pytest.raises(ValueError, match="cluster size 3"):
+        ne_ops.neumann_propagate(w, b, hops=3, transpose=True)
+    monkeypatch.setattr(ne_ops, "_cols_cluster", lambda v: (16, True))
+    with pytest.raises(ValueError, match="cluster size 16"):
         ne_ops.neumann_propagate(w, b, hops=3, transpose=True)
     monkeypatch.setattr(ne_ops, "_rows_cluster", lambda v, esize: (1, True))
     monkeypatch.setattr(ne_ops, "_SMEM_MAX", 16 * 1024)
     with pytest.raises(ValueError, match="shared memory"):
         ne_ops.neumann_propagate(w, b, hops=3)
+    monkeypatch.setattr(ne_ops, "_cols_cluster", lambda v: (8, False))
+    with pytest.raises(ValueError, match="shared memory"):  # x and the partial sums: 19.6 KB at V = 2000
+        ne_ops.neumann_propagate(_FakeCuda(torch.empty(1, 2000, 2000, device="meta")), _FakeCuda(torch.ones(1, 2000)),
+                                 hops=3, transpose=True)
 
 
 def test_launch_counts_by_variant(monkeypatch):
+    empty = {"neumann_cols": {}, "neumann_rows": {}, "flash_attention": {}}
+    assert _build.VARIANT_LAUNCHES.keys() == empty.keys()
     monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
-    monkeypatch.setattr(_build, "VARIANT_LAUNCHES", {"neumann_rows": {}, "flash_attention": {}})
+    monkeypatch.setattr(_build, "VARIANT_LAUNCHES", {k: {} for k in empty})
     _build.count("flash_attention", "wgmma")
     _build.count("flash_attention", "wgmma")
     _build.count("neumann_rows", "c4_resident")
+    _build.count("neumann_cols", "c4_resident")
+    _build.count("neumann_cols", "c8_streamed")
     _build.count("minplus")
     assert _build.LAUNCHES["flash_attention"] == 2 and _build.LAUNCHES["minplus"] == 1
-    assert _build.VARIANT_LAUNCHES == {"neumann_rows": {"c4_resident": 1}, "flash_attention": {"wgmma": 2}}
+    assert _build.LAUNCHES["neumann_cols"] == 2
+    assert _build.VARIANT_LAUNCHES == {
+        "neumann_cols": {"c4_resident": 1, "c8_streamed": 1}, "neumann_rows": {"c4_resident": 1},
+        "flash_attention": {"wgmma": 2},
+    }
     _build.reset_launches()
-    assert not any(_build.LAUNCHES.values()) and _build.VARIANT_LAUNCHES == {"neumann_rows": {}, "flash_attention": {}}
+    assert not any(_build.LAUNCHES.values()) and _build.VARIANT_LAUNCHES == empty
 
 
 def test_build_key_tracks_sources():
