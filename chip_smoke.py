@@ -7,25 +7,27 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` spills), then runs six phases, each printing JSON
-lines:
+`neumann_cols_kernel` or an argmin kernel spills), then runs six phases,
+each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Neumann rtol 1e-5 at the traffic scan's stages 0-2 for
      V = 256, and for the cols kernel also at V = 8200, bf16 operands
-     2e-2; min-plus and its argmin bitwise, ragged shapes included; flash
+     2e-2; min-plus and its argmin bitwise, ragged shapes included, and
+     the argmin also on ties past its first chunk, all-BIG and all-+INF
+     lines, K = 1 and K = 4200 in each of its variants; flash
      attention 1e-4 in fp32 and 2e-2 in bf16, fully masked rows exactly 0),
      with CUDA-event times, the plain version's time, a PyTorch-call
      yardstick (for Neumann the dense LU solve), and the card's bound;
-     each flash row names its variant (wgmma or cuda_core), each Neumann
-     row its cluster size and whether the operator stays on chip, and the
-     hops its early exit took;
+     each flash row names its variant (wgmma or cuda_core), each argmin
+     row its split of K, each Neumann row its cluster size and whether
+     the operator stays on chip, and the hops its early exit took;
   2. the paper's four scenarios through `compare_all` on the card, with
      `iot` and `geant` also solved on the CPU and compared, and the paper's
      claims checked;
   3. `engine_solve` on 64 stacked `random_connected(256, 32)` instances
      (the batched engine at realistic scale), with the per-round split of
-     placement / forwarding / round_eval;
+     placement / forwarding / round_eval and the device time by kernel;
   4. one large instance, `solve_alt(random_connected(1024, 4))`;
   5. the serve loop on qwen1.5-0.5b at full width and depth (bf16
      parameters, random weights from a seed): 16 requests of 1024 prompt
@@ -62,7 +64,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # CUDA cores, an FMA counted as two operations
 # Thread-instructions a second: 132 SMs x 4 x 32 a clock x 1.98 GHz (the clock
 # that 67 TFLOP/s implies). Min-plus has no fused add-min, so its bound counts
-# issued instructions: 2 a candidate (FADD, FMNMX), 4 with the argmin.
+# issued instructions: 2 a candidate (FADD, FMNMX), the argmin's too, whose
+# index costs no instruction a candidate (csrc/minplus.cu).
 FP32_ISSUE_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
 
@@ -172,23 +175,42 @@ def sass_opcodes(lib):
     return out
 
 
+def minplus_kernel_name(fn: str) -> str:
+    """A min-plus kernel's name with its template arguments, from its
+    mangled name: minplus_tile_kernel<vec>, minplus_argmin_kernel<vec, ids,
+    index> (16-byte or 4-byte copies of B; u8 or u32 chunk ids; int64 final
+    or int32 split partials) or minplus_argmin_combine_kernel."""
+    import re
+
+    if "combine" in fn:
+        return "minplus_argmin_combine_kernel"
+    m = re.search(r"minplus_argmin_kernelILb([01])ELb([01])E([xi])E", fn)
+    if m:
+        vec, wide, index = m.groups()
+        return (f"minplus_argmin_kernel<{str(vec == '1').lower()},{'u32' if wide == '1' else 'u8'},"
+                f"{'int64' if index == 'x' else 'int32'}>")
+    return f"minplus_tile_kernel<{str('ILb1E' in fn).lower()}>"
+
+
 def minplus_sass(ops) -> dict:
     """The min-plus kernels' instruction mix: the arithmetic (FADD, FMNMX),
     the shared loads (LDS.128 and the scalar rest), local-memory traffic
-    (spills: LDL/STL) and cp.async (LDGSTS). The product kernel must be
-    arithmetic fed by 16-byte shared loads, with no spills."""
+    (spills: LDL/STL) and cp.async (LDGSTS). The product and argmin
+    kernels must be arithmetic fed by 16-byte shared loads; no kernel may
+    spill."""
     out = {}
     for fn, counts in ops.items():
         if "minplus" not in fn:
             continue
-        name = "minplus_argmin_kernel" if "argmin" in fn else f"minplus_tile_kernel<{str('ILb1E' in fn).lower()}>"
+        name = minplus_kernel_name(fn)
         pick = {op: sum(n for k, n in counts.items() if k == op or k.startswith(op + "."))
                 for op in ("FADD", "FMNMX", "LDS", "LDL", "STL", "LDGSTS")}
         pick["LDS.128"] = counts.get("LDS.128", 0)
         pick["arithmetic_share_of_FADD_FMNMX_LDS"] = (pick["FADD"] + pick["FMNMX"]) / max(
             1, pick["FADD"] + pick["FMNMX"] + pick["LDS"])
         out[name] = pick
-        if "tile" in name and (pick["FMNMX"] < 64 or pick["LDL"] or pick["STL"] or not pick["LDS.128"]):
+        loop = "combine" not in name and (pick["FMNMX"] < 64 or not pick["LDS.128"])
+        if loop or pick["LDL"] or pick["STL"]:
             raise AssertionError(f"{name}: SASS is not the FADD/FMNMX loop on LDS.128 without spills: {pick}")
     return out
 
@@ -221,6 +243,7 @@ def phase1(scen, build, stacked256):
         apsp, minplus_matmul, minplus_matmul_argmin, minplus_matmul_argmin_ref,
         minplus_matmul_ref,
     )
+    from repro_torch.kernels.minplus import ops as mp_ops
     from repro_torch.kernels.neumann import (
         effective_hops, neumann_propagate, neumann_propagate_ref, neumann_solve,
     )
@@ -379,9 +402,11 @@ def phase1(scen, build, stacked256):
                 del got, want
                 shape = f"B={nb} V={v} {tag}" if v else f"B={nb} M={m} K={kk} N={nn} {tag}"
                 row = {"kernel": name, "shape": shape, "max_abs_err": err}
+                if name == "minplus_argmin":
+                    row["variant"] = argmin_variant(nb, m, kk, nn)
                 if "integer" not in tag:
                     out_bytes = nb * m * nn * (12 if name == "minplus_argmin" else 4)
-                    instructions = (4 if name == "minplus_argmin" else 2) * nb * m * kk * nn
+                    instructions = 2 * nb * m * kk * nn
                     row.update({
                         "ms": cuda_ms(fn, 10 if m <= 256 else 3),
                         "plain_ms": cuda_ms(plain, 2, 1),
@@ -391,9 +416,66 @@ def phase1(scen, build, stacked256):
                 keep(name, row, headline and tag == ("apsp" if name == "minplus" else "nexthop"))
         del products
         torch.cuda.empty_cache()
+
+    # The argmin's own edge cases, bitwise: integer ties whose minimum first
+    # appears past the first 16-deep stage (A's first 16 k raised by 10) and
+    # recurs in later chunks and split ranges, with rows and columns all BIG
+    # and all +INF, unsplit (B=64), in 4 and 2 ranges (V = 256, 1024); K = 1;
+    # and K = 4200, past 256 byte-numbered 4-deep chunks: in the chooser's 8
+    # ranges and, forced, in one range with word chunk ids (N = 63: 4-byte
+    # copies of B), in two with word ids and in six with byte ones.
+    def ties(nb, m, kk, nn):
+        a_, b_ = integers((nb, m, kk)), integers((nb, kk, nn))
+        a_[..., :16] += 10
+        a_[:, 1, :], b_[:, :, 1] = 1e18, 1e18
+        a_[:, 3, :], b_[:, :, 3] = math.inf, math.inf
+        return a_, b_
+
+    edge_cases = [
+        ("ties past chunk 0, BIG and +INF lines", (64, 256, 256, 256), None),
+        ("ties past chunk 0, BIG and +INF lines", (1, 256, 256, 256), None),
+        ("ties past chunk 0, BIG and +INF lines", (1, 1024, 1024, 1024), None),
+        ("K=1", (2, 64, 1, 64), None),
+        ("K=4200", (1, 64, 4200, 64), None),
+        ("K=4200 forced", (1, 64, 4200, 63), (1, 4208, True)),
+        ("K=4200 forced", (1, 64, 4200, 64), (2, 2112, True)),
+        ("K=4200 forced", (1, 64, 4200, 64), (6, 704, False)),
+    ]
+    chooser = mp_ops._argmin_split
+    for tag, (nb, m, kk, nn), forced in edge_cases:
+        a_, b_ = ties(nb, m, kk, nn)
+        if forced:
+            mp_ops._argmin_split = lambda *_a, f=forced: f
+        try:
+            got = minplus_matmul_argmin(a_, b_)
+            variant = mp_ops._argmin_variant(*mp_ops._argmin_split(nb, m, nn, kk)[::2])
+        finally:
+            mp_ops._argmin_split = chooser
+        want = minplus_matmul_argmin_ref(a_, b_)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"minplus_argmin B={nb} M={m} K={kk} N={nn} {tag} {variant}: "
+                                 "not bitwise equal to the plain version")
+        if kk > 16 and not bool((want[1][want[0] < 1e18] >= 16).all()):
+            raise AssertionError(f"minplus_argmin {tag}: a minimum in the first chunk")
+        if not (bool((want[0][:, 3, :] == math.inf).all()) and bool((got[1][:, 3, :] == 0).all())):
+            raise AssertionError(f"minplus_argmin {tag}: an all-+INF row is not (+INF, 0)")
+        finite = torch.isfinite(want[0])  # the +INF lines agree bitwise, but inf - inf is NaN
+        keep("minplus_argmin", {"kernel": "minplus_argmin", "shape": f"B={nb} M={m} K={kk} N={nn} {tag}",
+                                "variant": variant, "max_abs_err": (got[0] - want[0])[finite].abs().max().item()},
+             False)
+        del a_, b_, got, want
+    torch.cuda.empty_cache()
     build.reset_launches()
     emit({"phase": 1, "name": "kernels_vs_plain", "rows": rows})
     return summary
+
+
+def argmin_variant(nb, m, kk, nn) -> str:
+    """The argmin variant the wrapper launches for [nb, m, kk] (x) [nb, kk, nn]."""
+    from repro_torch.kernels.minplus import ops as mp_ops
+
+    splits, _, wide = mp_ops._argmin_split(nb, m, nn, kk)
+    return mp_ops._argmin_variant(splits, wide)
 
 
 def flash_live_entries(sq, sk, causal, window, q_offset) -> int:
@@ -501,7 +583,8 @@ def phase2(scen, alt, counter):
         t0 = time.perf_counter()
         res = counter.run(lambda: alt.compare_all(make()))
         t_gpu = time.perf_counter() - t0
-        line = {"scenario": name, "gpu_s": t_gpu}
+        line = {"scenario": name, "gpu_s": t_gpu, "launches": counter.last,
+                "argmin_variants": counter.last_variants["minplus_argmin"]}
         line.update({m: {"J": r.J, "iters": r.iters} for m, r in res.items()})
         for m, r in res.items():
             if not math.isfinite(r.J):
@@ -549,6 +632,7 @@ def phase3(core, pad, counter, stacked, lane0):
     # Every traffic and cost-to-go solve runs on a cluster of more than one
     # CTA that keeps its operator on chip for the whole solve.
     variants = {k: counter.last_variants[k] for k in ("neumann_cols", "neumann_rows")}
+    argmin_variants = counter.last_variants["minplus_argmin"]
     for name, by in variants.items():
         if not by or sum(by.values()) != launches[name] or not all(
                 k.endswith("_resident") and int(k[1:k.index("_")]) > 1 for k in by):
@@ -564,6 +648,7 @@ def phase3(core, pad, counter, stacked, lane0):
     if not cons <= 1e-3:
         raise AssertionError(f"phase 3: conservation violated by {cons}")
     one = counter.run(lambda: core.engine_solve(pad.stack_problems([lane0]), **kw))
+    lane0_argmin_variants = counter.last_variants["minplus_argmin"]
     rel0 = abs(one["J"][0].item() / J[0].item() - 1.0)
     same_hosts = torch.equal(one["hosts"][0], out["hosts"][0])
     if not (rel0 <= 1e-5 or not same_hosts):
@@ -595,14 +680,16 @@ def phase3(core, pad, counter, stacked, lane0):
     }
     split["profile"] = profile(
         one_round, {"neumann_rows": ("neumann_rows_kernel",), "neumann_cols": ("neumann_cols_kernel",),
-                    "minplus": ("minplus_tile_kernel", "minplus_argmin_kernel")}, sum(split.values())
+                    "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",)},
+        sum(split.values())
     )
     emit({
         "phase": 3, "B": 64, "V": 256, "A": 32, "K": 3, **kw,
         "rounds": out["rounds"], "wall_s": wall, "ms_per_round": 1e3 * wall / max(out["rounds"], 1),
         "peak_gb": peak / 1e9, "J_mean": J.mean().item(), "conservation_rel": cons,
         "lane0_rel_vs_B1": rel0, "lane0_same_hosts": same_hosts, "launches": launches,
-        "neumann_variants": variants, "split": split,
+        "neumann_variants": variants, "argmin_variants": argmin_variants,
+        "lane0_argmin_variants": lane0_argmin_variants, "split": split,
     })
 
 
@@ -627,6 +714,7 @@ def phase4(scen, alt, core, counter):
         "phase": 4, "V": 1024, "A": 4, "m_max": 1, "t_phi": 2, "J": res.J,
         "iters": res.iters, "wall_s": wall, "ms_per_round": 1e3 * wall / max(res.iters, 1),
         "hop_bound": prob.hop_bound, "conservation_rel": cons, "launches": launches,
+        "argmin_variants": counter.last_variants["minplus_argmin"],
     })
 
 
@@ -852,10 +940,12 @@ def main() -> int:
           "flash_hgmma_instructions": "not measured (no cuobjdump)" if hgmma is None else hgmma,
           "minplus_sass": "not measured (no cuobjdump)" if minplus_ops is None else minplus_sass(minplus_ops),
           "ptxas": ptxas})
-    # neumann_cols rests on its operands staying in registers between hops.
-    spills = [ln for ln in ptxas["neumann"] if ln.startswith("neumann_cols_kernel") and "spill" in ln]
+    # neumann_cols rests on its operands staying in registers between hops,
+    # the argmin on its minima and chunk ids staying there over the k loop.
+    spills = [ln for ln in ptxas["neumann"] + ptxas["minplus"]
+              if ln.startswith(("neumann_cols_kernel", "minplus_argmin")) and "spill" in ln]
     if spills:
-        raise AssertionError(f"neumann_cols_kernel spills: {spills}")
+        raise AssertionError(f"kernels that spill: {spills}")
 
     problems = [scen.random_connected(256, 32, seed=s) for s in range(64)]
     stacked = pad.stack_problems(problems)

@@ -33,7 +33,9 @@ NVCC_FLAGS = (
 
 # Launch counts of every kernel, by name, and of the variants of the kernels
 # that have more than one (flash_attention: "wgmma" | "cuda_core";
-# neumann_rows, neumann_cols: "c<C>_resident" | "c<C>_streamed"). Each
+# neumann_rows, neumann_cols: "c<C>_resident" | "c<C>_streamed";
+# minplus_argmin: "s<S>_u8" | "s<S>_u32", S splits of K, byte or word chunk
+# ids). Each
 # wrapper calls `count` where it launches its kernel and nowhere else, so a
 # run can show that its main path went through the kernels (chip_smoke.py
 # resets and reads these).
@@ -41,7 +43,9 @@ LAUNCHES = {
     "neumann_cols": 0, "neumann_rows": 0, "minplus": 0, "minplus_argmin": 0,
     "flash_attention": 0,
 }
-VARIANT_LAUNCHES: dict[str, dict[str, int]] = {"neumann_cols": {}, "neumann_rows": {}, "flash_attention": {}}
+VARIANT_LAUNCHES: dict[str, dict[str, int]] = {
+    "neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {},
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

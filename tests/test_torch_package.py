@@ -264,7 +264,7 @@ def test_kernel_wrappers_validate_variant_rules(monkeypatch):
 
 
 def test_launch_counts_by_variant(monkeypatch):
-    empty = {"neumann_cols": {}, "neumann_rows": {}, "flash_attention": {}}
+    empty = {"neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {}}
     assert _build.VARIANT_LAUNCHES.keys() == empty.keys()
     monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
     monkeypatch.setattr(_build, "VARIANT_LAUNCHES", {k: {} for k in empty})
@@ -274,14 +274,39 @@ def test_launch_counts_by_variant(monkeypatch):
     _build.count("neumann_cols", "c4_resident")
     _build.count("neumann_cols", "c8_streamed")
     _build.count("minplus")
+    _build.count("minplus_argmin", mp_ops._argmin_variant(2, False))
+    _build.count("minplus_argmin", mp_ops._argmin_variant(1, True))
+    _build.count("minplus_argmin", mp_ops._argmin_variant(2, False))
     assert _build.LAUNCHES["flash_attention"] == 2 and _build.LAUNCHES["minplus"] == 1
-    assert _build.LAUNCHES["neumann_cols"] == 2
+    assert _build.LAUNCHES["neumann_cols"] == 2 and _build.LAUNCHES["minplus_argmin"] == 3
     assert _build.VARIANT_LAUNCHES == {
         "neumann_cols": {"c4_resident": 1, "c8_streamed": 1}, "neumann_rows": {"c4_resident": 1},
-        "flash_attention": {"wgmma": 2},
+        "minplus_argmin": {"s2_u8": 2, "s1_u32": 1}, "flash_attention": {"wgmma": 2},
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values()) and _build.VARIANT_LAUNCHES == empty
+
+
+def test_argmin_wrapper_checks_its_split(monkeypatch):
+    """The argmin wrapper launches only splits that cover K with non-empty
+    ranges of whole 16-deep stages, and byte chunk ids only up to 256
+    4-deep chunks a range; what the chooser gives passes those checks and
+    reaches the launch, which raises without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(mp_ops, "minplus_matmul_argmin_blocked", _no_plain)
+    a, b = _FakeCuda(torch.zeros(1, 64, 4200)), _FakeCuda(torch.zeros(1, 4200, 64))
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        mp_ops.minplus_matmul_argmin(a, b)
+    for forced in ((1, 4208, True), (2, 2112, True), (6, 704, False)):  # word ids; six byte-id splits
+        monkeypatch.setattr(mp_ops, "_argmin_split", lambda *_a, f=forced: f)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            mp_ops.minplus_matmul_argmin(a, b)
+    # 1052 and 352 chunks in a byte; a range past K; an empty range; ranges of part of a stage
+    for bad in ((1, 4208, False), (3, 1408, False), (2, 2000, True), (9, 528, False), (3, 1400, True)):
+        monkeypatch.setattr(mp_ops, "_argmin_split", lambda *_a, f=bad: f)
+        with pytest.raises(ValueError, match="no launch"):
+            mp_ops.minplus_matmul_argmin(a, b)
 
 
 def test_build_key_tracks_sources():
