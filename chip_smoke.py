@@ -7,12 +7,13 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` or an argmin kernel spills), then runs six phases,
+`neumann_cols_kernel` or an argmin kernel spills), then runs seven phases,
 each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Neumann rtol 1e-5 at the traffic scan's stages 0-2 for
-     V = 256, and for the cols kernel also at V = 8200, bf16 operands
+     V = 256, on a phase-7 fleet lane in the two-CTA cluster range, which
+     must launch `c2_resident`, and for the cols kernel also at V = 8200, bf16 operands
      2e-2; min-plus and its argmin bitwise, ragged shapes included, and
      the argmin also on ties past its first chunk, all-BIG and all-+INF
      lines, K = 1 and K = 4200 in each of its variants; flash
@@ -36,9 +37,23 @@ each printing JSON lines:
      (prefill-then-decode against the full forward; the card against the
      CPU on the same weights);
   6. the data plane: the same model split at layer 12, partition 1's
-     activation fed to partition 2, against the monolithic logits.
+     activation fed to partition 2, against the monolithic logits;
+  7. the fleet path: `solve_fleet` over 64 sampled instances of all four
+     families (V up to 256, split depths 1-3, padded to V = 256, A = 40,
+     K = 4) with the round trace, its per-round split, the placement sweep
+     at block_apps 1 and 0, and eight checks: J finite, best of its history
+     and conserving traffic; block_apps=0 and trace=False bitwise the same;
+     two chunks and B = 1 solves of lanes 0-3 at rtol 1e-5 (on at most two
+     lanes whose hosts differ on a near-tie, 1e-3); the four methods finite on lanes 0-7 with
+     hosts only on real nodes; `repair_placement` off two dead nodes (on
+     lane 0, or the first lane that hosts a partition on a removable
+     non-endpoint node), and the identity with every node live; every
+     solver kernel launched. Each solver kernel is also held to its plain
+     version on the inputs of one padded round (pad nodes, pad apps,
+     phantom stages), and one sweep's device operations are counted at
+     both block sizes.
 
-Kernel launches are counted only while the main paths run (phases 2-6),
+Kernel launches are counted only while the main paths run (phases 2-7),
 by kernel and by variant; every kernel must have launched there, every
 phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
 of more than one CTA, and every phase-5 prefill flash launch the wgmma
@@ -68,6 +83,14 @@ FP32_OPS_PER_S = 67e12  # CUDA cores, an FMA counted as two operations
 # index costs no instruction a candidate (csrc/minplus.cu).
 FP32_ISSUE_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
+
+# Phase 7's fleet: what a control plane re-solves at once, metro and
+# backbone networks beside IoT-edge-cloud trees, split 1-3 ways.
+FLEET_B, FLEET_N_RANGE, FLEET_APPS_RANGE = 64, (128, 256), (16, 32)
+# Chunked and B=1 fleet solves against the single batch: J per lane at rtol
+# 1e-5, except on at most this many lanes whose hosts differ on a near-tie,
+# which still hold J to NEAR_TIE_RTOL.
+NEAR_TIE_LANES, NEAR_TIE_RTOL = 2, 1e-3
 
 NEUMANN_RTOL = 1e-5  # same algorithm, different fp32 summation order
 BF16_TOL = 2e-2  # bf16 operands vs the fp32 plain version
@@ -233,7 +256,7 @@ def neumann_hops_used(w, b, hops, tol, transpose):
     return int(used.sum())
 
 
-def phase1(scen, build, stacked256):
+def phase1(scen, build, stacked256, fleet_problems):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
     from repro_torch.core import forwarding_update, stack_single, stage_traffic, structured_init
@@ -264,10 +287,17 @@ def phase1(scen, build, stacked256):
 
     rc64 = stack_single(scen.random_connected(64, 24, seed=0))
     rc1024 = stack_single(scen.random_connected(1024, 4, seed=1))
+    # The first phase-7 fleet lane in both Neumann kernels' two-CTA range
+    # (129 <= V <= 180): phase 7's unpadded B=1 solves run that layout.
+    c2 = "c2_resident"
+    c2_lane = next(p for p in fleet_problems
+                   if _variant(*_cols_cluster(p.net.n_nodes)) == _variant(*_rows_cluster(p.net.n_nodes, 4)) == c2)
+    c2_v = c2_lane.net.n_nodes
     # (V, stacked problem, is the phase-3 shape that heads the kernels line)
     cases = [
         (17, stack_single(scen.iot()), False),
         (64, rc64, False),
+        (c2_v, stack_single(c2_lane), False),
         (256, stacked256, True),
         (1024, rc1024, False),
         (1280, stack_single(scen.random_connected(1280, 4, seed=1)), False),
@@ -290,7 +320,11 @@ def phase1(scen, build, stacked256):
             for dt in (torch.float32, torch.bfloat16) if v == 1280 else (torch.float32,):
                 wd = w if dt == torch.float32 else w.to(dt)
                 for transpose, name in ((True, "neumann_cols"), (False, "neumann_rows")):
+                    build.reset_launches()
                     got = neumann_propagate(wd, b, hops=hops, transpose=transpose)
+                    launched = set(build.VARIANT_LAUNCHES[name])
+                    if v == c2_v and launched != {c2}:
+                        raise AssertionError(f"{name} V={v}: launched {launched}, not {c2}")
                     want = neumann_propagate_ref(wd, b, hops, 1e-6, transpose)
                     err = (got - want).abs().max().item()
                     scale = want.abs().max().item()
@@ -647,7 +681,7 @@ def phase3(core, pad, counter, stacked, lane0):
     cons = ((absorbed - stacked.apps.lam).abs() / stacked.apps.lam).max().item()
     if not cons <= 1e-3:
         raise AssertionError(f"phase 3: conservation violated by {cons}")
-    one = counter.run(lambda: core.engine_solve(pad.stack_problems([lane0]), **kw))
+    one = counter.run(lambda: core.engine_solve(pad.stack_problems([lane0])[0], **kw))
     lane0_argmin_variants = counter.last_variants["minplus_argmin"]
     rel0 = abs(one["J"][0].item() / J[0].item() - 1.0)
     same_hosts = torch.equal(one["hosts"][0], out["hosts"][0])
@@ -718,10 +752,290 @@ def phase4(scen, alt, core, counter):
     })
 
 
+def connected_without(adj, dead) -> bool:
+    """Whether the nodes of `adj` (numpy [V, V]) minus `dead` stay connected."""
+    from repro_torch.core import _graphs
+
+    alive = [u for u in range(adj.shape[0]) if u not in dead]
+    g = {u: {} for u in alive}
+    for u in alive:
+        for v in alive:
+            if u < v and adj[u, v] > 0:
+                _graphs.add_edge(g, u, v)
+    return _graphs.is_connected(g)
+
+
+def fleet_kernels_vs_plain(core, stacked, state) -> dict:
+    """The solver kernels against their plain versions on the fleet's own
+    padded inputs: every Neumann solve of one `round_eval` (traffic and
+    cost-to-go, with the zero right-hand sides of phantom stages and pad
+    apps) and every min-plus product of one `placement_update` (the APSP
+    squarings, and the next-hop argmin with its all-BIG rows at pad nodes),
+    recorded as the engine hands them to the wrappers, then replayed. Neumann
+    at NEUMANN_RTOL, with an exactly zero solution for a zero right-hand
+    side; min-plus and its argmin bitwise. Returns the max abs error by
+    kernel and what the inputs held."""
+    import torch
+    from repro_torch.kernels.minplus import minplus_matmul_argmin_ref, minplus_matmul_ref
+    from repro_torch.kernels.minplus import ops as mp_ops
+    from repro_torch.kernels.neumann import neumann_propagate_ref
+    from repro_torch.kernels.neumann import ops as nm_ops
+
+    calls = {"neumann_propagate": [], "minplus_matmul": [], "minplus_matmul_argmin": []}
+    modules = {"neumann_propagate": nm_ops, "minplus_matmul": mp_ops, "minplus_matmul_argmin": mp_ops}
+    wrappers = {name: getattr(mod, name) for name, mod in modules.items()}
+
+    def recorder(name):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return wrappers[name](*args, **kw)
+        return record
+
+    for name, mod in modules.items():
+        setattr(mod, name, recorder(name))
+    try:
+        with torch.no_grad():
+            _, aux = core.round_eval(stacked, state)
+            core.placement_update(stacked, state, aux["ctg"])
+    finally:
+        for name, mod in modules.items():
+            setattr(mod, name, wrappers[name])
+    del aux
+
+    err = {"neumann_cols": 0.0, "neumann_rows": 0.0, "minplus": 0.0, "minplus_argmin": 0.0}
+    rel = {"neumann_cols": 0.0, "neumann_rows": 0.0}  # max abs error over the largest |x|
+    seen = {"solves": {"neumann_cols": 0, "neumann_rows": 0}, "zero_rhs_operators": 0,
+            "minplus_products": 0, "argmin_products": 0, "all_big_argmin_rows": 0}
+    for (w, b), kw in calls["neumann_propagate"]:
+        name = "neumann_cols" if kw["transpose"] else "neumann_rows"
+        got = wrappers["neumann_propagate"](w, b, **kw)
+        want = neumann_propagate_ref(w, b, kw["hops"], kw["tol"], kw["transpose"])
+        e, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not e <= NEUMANN_RTOL * scale:
+            raise AssertionError(f"phase 7: {name} {tuple(w.shape)}: max err {e} > {NEUMANN_RTOL} * {scale}")
+        zero = (b == 0).all(dim=-1)
+        if bool((got[zero] != 0).any()):
+            raise AssertionError(f"phase 7: {name}: a zero right-hand side gave a nonzero solution")
+        err[name] = max(err[name], e)
+        rel[name] = max(rel[name], e / scale if scale > 0 else 0.0)
+        seen["solves"][name] += 1
+        seen["zero_rhs_operators"] += int(zero.sum())
+    for (a_, b_), _ in calls["minplus_matmul"]:
+        got, want = wrappers["minplus_matmul"](a_, b_), minplus_matmul_ref(a_, b_)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 7: minplus {tuple(a_.shape)} not bitwise equal to the plain version")
+        seen["minplus_products"] += 1
+    for (a_, b_), _ in calls["minplus_matmul_argmin"]:
+        got, want = wrappers["minplus_matmul_argmin"](a_, b_), minplus_matmul_argmin_ref(a_, b_)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"phase 7: minplus_argmin {tuple(a_.shape)} not bitwise equal to the plain version")
+        seen["argmin_products"] += 1
+        seen["all_big_argmin_rows"] += int((a_ >= core.BIG).all(dim=-1).sum())
+    del calls
+    if not (min(seen["solves"].values()) > 0 and seen["zero_rhs_operators"] > 0 and seen["minplus_products"] > 0
+            and seen["argmin_products"] > 0 and seen["all_big_argmin_rows"] > 0):
+        raise AssertionError(f"phase 7: the recorded round lacks a padded case: {seen}")
+    return {"max_abs_err": err, "neumann_err_over_scale": rel, **seen}
+
+
+def phase7(core, counter, problems):
+    """The fleet path: sample_fleet -> pad -> engine (blocked sweep, trace) ->
+    FleetResult, with the eight checks of the fleet workload, and each
+    solver kernel against its plain version on one padded round."""
+    import numpy as np
+    import torch
+    from repro_torch import fleet
+    from repro_torch.core import placement
+
+    kw = dict(method="ALT", m_max=4, t_phi=5, round_to=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = counter.run(lambda: fleet.solve_fleet(problems, trace=True, keep_state=True, **kw))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, variants = counter.last, counter.last_variants
+    stacked, info = fleet.stack_problems(problems, round_to=8)
+    b, v, a, k = stacked.net.adj.shape[0], stacked.net.n_nodes, stacked.apps.n_apps, stacked.apps.L.shape[-1]
+
+    # 1. J finite, the best of its history, traffic conserved on real apps.
+    J, hist = res.J, res.history
+    if J.shape != (FLEET_B,) or not np.isfinite(J).all():
+        raise AssertionError("phase 7: J not finite or wrong shape")
+    if not (np.array_equal(np.nanmin(hist, axis=1), J) and (J <= hist[:, 0]).all()):
+        raise AssertionError("phase 7: returned J is not the best of the history")
+    absorbed = core.total_absorbed(stacked, res.state)
+    lam = stacked.apps.lam
+    real = lam > 0
+    cons = ((absorbed - lam).abs()[real] / lam[real]).max().item()
+    if not cons <= 1e-3:
+        raise AssertionError(f"phase 7: conservation violated by {cons}")
+    # 8. The path went through every solver kernel (nonzero: counts follow the data).
+    for name in ("neumann_cols", "neumann_rows", "minplus", "minplus_argmin"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 7: {name} never launched")
+    vs_plain = fleet_kernels_vs_plain(core, stacked, res.state)
+
+    # 2. The blocked sweep, one block over every app: bitwise the same solve.
+    blocked = counter.run(lambda: fleet.solve_fleet(problems, block_apps=0, **kw))
+    if not (np.array_equal(blocked.hosts, res.hosts) and np.array_equal(blocked.J, res.J)):
+        raise AssertionError("phase 7: block_apps=0 is not bitwise block_apps=1")
+    # 3. The trace changes no solved bit.
+    untraced = counter.run(lambda: fleet.solve_fleet(problems, trace=False, **kw))
+    if not np.array_equal(untraced.J, res.J) or untraced.trace is not None:
+        raise AssertionError("phase 7: trace=False changed J")
+
+    def near(got_J, same_hosts, what):
+        """rtol 1e-5 per lane, except on at most NEAR_TIE_LANES lanes whose
+        hosts differ (a placement near-tie of marginals that differ by an
+        ulp, ROADMAP section 3), which hold J to NEAR_TIE_RTOL."""
+        rel = np.abs(np.asarray(got_J) / J[:len(got_J)] - 1.0)
+        ties = []
+        for lane in np.flatnonzero(rel > 1e-5):
+            if same_hosts[lane] or not rel[lane] <= NEAR_TIE_RTOL:
+                raise AssertionError(f"phase 7: {what} lane {lane}: J {got_J[lane]} vs {J[lane]} "
+                                     f"(hosts {'same' if same_hosts[lane] else 'differ'})")
+            ties.append(int(lane))
+        if len(ties) > NEAR_TIE_LANES:
+            raise AssertionError(f"phase 7: {what}: {len(ties)} lanes off by more than 1e-5: {ties}")
+        return {"max_rel": float(rel.max()), "near_tie_lanes": ties}
+
+    # 4. Two chunks of half the fleet against the single batch.
+    chunked = counter.run(lambda: fleet.solve_fleet(problems, chunk_size=FLEET_B // 2, **kw))
+    chunk_vs = near(chunked.J, [np.array_equal(chunked.hosts[i], res.hosts[i]) for i in range(FLEET_B)],
+                    "chunk_size=B/2")
+    # 5. Lanes 0-3 (one of each family), unpadded at B = 1.
+    seq = counter.run(lambda: fleet.solve_sequential(problems[:4], m_max=4, t_phi=5))
+    seq_same = []
+    for i, r in enumerate(seq):
+        h = r.state.hosts().cpu().numpy()
+        seq_same.append(np.array_equal(h, res.hosts[i, :h.shape[0], :h.shape[1]]))
+    seq_vs = near([r.J for r in seq], seq_same, "solve_sequential")
+    # 6. The four methods on lanes 0-7: finite J, hosts only on real nodes.
+    methods = {}
+    for m in fleet.METHODS:
+        r = counter.run(lambda m=m: fleet.solve_fleet(problems[:8], **{**kw, "method": m}))
+        rows = r.per_instance()
+        if not np.isfinite(r.J).all() or any("padded_host_leaks" in row for row in rows):
+            raise AssertionError(f"phase 7: {m} J not finite or a host on a pad node")
+        methods[m] = {"J_mean": float(r.J.mean()), "rounds": r.rounds}
+
+    # 7. repair_placement: two non-endpoint nodes whose loss keeps the graph
+    # connected die, at least one of them hosting a partition. Lane 0 when
+    # it has such a host (a depth-1 lane may host every partition at an
+    # app endpoint), else the first lane that does.
+    for lane in range(FLEET_B):
+        prob = problems[lane]
+        adj_l = prob.net.adj.cpu().numpy()
+        live_apps = res.app_mask[lane] > 0
+        parts_l = res.parts[lane]
+        busy = {int(h) for row, pa in zip(res.hosts[lane][live_apps], parts_l[live_apps]) for h in row[:pa]}
+        ends = set(prob.apps.src.tolist()) | set(prob.apps.dst.tolist())
+        dead = []
+        for node in sorted(busy - ends) + sorted(set(range(prob.net.n_nodes)) - busy - ends):
+            if connected_without(adj_l, dead + [node]):
+                dead.append(node)
+            if len(dead) == 2:
+                break
+        if dead and dead[0] in busy:
+            break
+    else:
+        raise AssertionError("phase 7: no lane hosts a partition on a removable non-endpoint node")
+    lane0, info0 = fleet.stack_problems([prob], envelope=(v, a), n_parts=k - 1, hop_bound=stacked.hop_bound)
+    state0 = core.State(x=res.state.x[lane:lane + 1], phi=res.state.phi[lane:lane + 1])
+    same = counter.run(lambda: placement.repair_placement(lane0, state0, info0.node_mask))
+    if not (torch.equal(same.x, state0.x) and torch.equal(same.phi, state0.phi)):
+        raise AssertionError("phase 7: repair_placement with every node live changed the state")
+    adj, mu, nu = lane0.net.adj.clone(), lane0.net.mu.clone(), lane0.net.nu.clone()
+    mask = info0.node_mask.clone()
+    for d in dead:
+        adj[:, d, :] = 0.0
+        adj[:, :, d] = 0.0
+        mu[:, d, :] = core.BIG
+        mu[:, :, d] = core.BIG
+        nu[:, d] = fleet.NU_PAD
+        mask[:, d] = 0.0
+    broken = dataclasses.replace(lane0, net=core.Network(adj=adj, mu=mu, nu=nu))
+    repaired = counter.run(lambda: placement.repair_placement(broken, state0, mask))
+    h_rep = repaired.hosts()[0].cpu().numpy()
+    real_parts = [(int(i), p) for i in np.flatnonzero(live_apps) for p in range(parts_l[i])]
+    on_dead = [(i, p) for i, p in real_parts if h_rep[i, p] in dead]
+    if on_dead:
+        raise AssertionError(f"phase 7: repair left partitions {on_dead} on dead nodes {dead}")
+    moved = sum(int(h_rep[i, p] != res.hosts[lane][i, p]) for i, p in real_parts)
+    if moved == 0 or any(h_rep[i, p] != res.hosts[lane][i, p] for i, p in real_parts
+                         if res.hosts[lane][i, p] not in dead):
+        raise AssertionError(f"phase 7: repair moved {moved} partitions, or moved one off a live node")
+
+    # One more round, each step timed with CUDA events (as phase 3), and the
+    # placement sweep at block_apps 1 and 0 on the same inputs, in turns.
+    state = res.state
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ev[0].record()
+        core.structured_init(stacked)
+        ev[1].record()
+        _, aux = core.round_eval(stacked, state)
+        ev[2].record()
+        nxt = core.placement_update(stacked, state, aux["ctg"])
+        ev[3].record()
+        core.forwarding_update(stacked, nxt, t_phi=kw["t_phi"], alpha=0.5)
+        ev[4].record()
+        torch.cuda.synchronize()
+        split = {
+            "init_ms": ev[0].elapsed_time(ev[1]), "round_eval_ms": ev[1].elapsed_time(ev[2]),
+            "placement_ms": ev[2].elapsed_time(ev[3]), "forwarding_ms": ev[3].elapsed_time(ev[4]),
+        }
+        sweep_ms = {1: [], 0: []}
+        for bk in (1, 0, 0, 1):
+            sweep_ms[bk].append(cuda_ms(lambda: core.placement_update(stacked, state, aux["ctg"], block_apps=bk), 1, 0))
+        # Device operations (kernels, copies, fills) one sweep issues at each
+        # block size, and their device time.
+        sweep_ops = {}
+        for bk in (1, 0):
+            pr = profile(lambda: core.placement_update(stacked, state, aux["ctg"], block_apps=bk), {})
+            sweep_ops[bk] = {"device_ops": pr.get("device_ops", "not measured"),
+                             "device_busy_ms": pr.get("device_busy_ms", "not measured")}
+        del nxt, aux
+
+    def one_round():
+        with torch.no_grad():
+            _, aux = core.round_eval(stacked, state)
+            nxt = core.placement_update(stacked, state, aux["ctg"])
+            core.forwarding_update(stacked, nxt, t_phi=kw["t_phi"], alpha=0.5)
+
+    prof = profile(
+        one_round, {"neumann_rows": ("neumann_rows_kernel",), "neumann_cols": ("neumann_cols_kernel",),
+                    "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",)},
+        split["round_eval_ms"] + split["placement_ms"] + split["forwarding_ms"],
+    )
+    emit({
+        "phase": 7, "name": "fleet", "B": b, "V": v, "A": a, "K": k, **kw,
+        "families": {f: sum(1 for i in range(FLEET_B) if i % 4 == j) for j, f in enumerate(fleet.FAMILIES)},
+        "rounds": res.rounds, "wall_s": wall, "ms_per_round": 1e3 * wall / max(res.rounds, 1),
+        "peak_gb": peak / 1e9, "phi_gb": b * a * k * v * v * 4 / 1e9,
+        "real_nodes": int(res.node_mask.sum()), "padded_nodes": b * v,
+        "real_apps": int(res.app_mask.sum()), "padded_apps": b * a,
+        "J_mean": float(J.mean()), "conservation_rel": cons, "mean_churn": res.trace.mean_churn(),
+        "iters": np.bincount(res.iters, minlength=5).tolist(), "launches": launches,
+        "variants": {n: variants[n] for n in ("neumann_cols", "neumann_rows", "minplus_argmin")},
+        "split": split, "profile": prof, "placement_ms_block_apps_1": sweep_ms[1], "placement_ms_block_apps_0": sweep_ms[0],
+        "placement_ops_block_apps_1": sweep_ops[1], "placement_ops_block_apps_0": sweep_ops[0],
+        "kernels_vs_plain": vs_plain,
+        "chunk_half_vs_single": chunk_vs, "sequential_lanes_0_3_vs_fleet": seq_vs, "methods_lanes_0_7": methods,
+        "repair": {"lane": lane, "dead": dead, "hosts_moved": moved, "identity_all_live": True},
+    })
+    del res, blocked, untraced, chunked, stacked, state
+    torch.cuda.empty_cache()
+    return vs_plain["max_abs_err"]
+
+
 def profile(fn, families, wall_ms=None) -> dict:
     """Device time of `fn()` under torch.profiler by kernel family
     (`families`: name -> substrings of kernel names; the rest is "other"),
-    the ten largest kernels, and, given `wall_ms` (the same work timed
+    the ten largest kernels, the count of device operations (kernels,
+    copies, fills), and, given `wall_ms` (the same work timed
     without the profiler), the device's idle share. Only device-side kernel
     events are summed: CPU operator ranges also carry their children's
     device time, and the device-side ranges of `obs` spans ("serve.*")
@@ -746,11 +1060,12 @@ def profile(fn, families, wall_ms=None) -> dict:
         fam[key] += dev_ms
         top.append((dev_ms, e.key[:90], e.count))
     busy = sum(fam.values())
+    ops = sum(c for _, _, c in top)
     if busy <= 0:
         return {"device_ms": "not measured", "wall_ms": wall_ms}
     top.sort(reverse=True)
     out = {
-        "device_busy_ms": busy, "device_ms_by_family": fam,
+        "device_busy_ms": busy, "device_ops": ops, "device_ms_by_family": fam,
         "top_kernels": [{"ms": t, "name": n, "calls": c} for t, n, c in top[:10]],
     }
     if wall_ms is not None:
@@ -923,6 +1238,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core
     from repro_torch.core import alt, scenarios as scen
+    from repro_torch import fleet
     from repro_torch.fleet import pad
     from repro_torch.kernels import _build
 
@@ -935,8 +1251,10 @@ def main() -> int:
     if hgmma == 0:
         raise AssertionError("the flash library holds no HGMMA (wgmma) instruction")
     ptxas = {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
     emit({"phase": 0, "name": "build", "build_s": time.perf_counter() - t0,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": nvcc,
           "flash_hgmma_instructions": "not measured (no cuobjdump)" if hgmma is None else hgmma,
           "minplus_sass": "not measured (no cuobjdump)" if minplus_ops is None else minplus_sass(minplus_ops),
           "ptxas": ptxas})
@@ -948,9 +1266,11 @@ def main() -> int:
         raise AssertionError(f"kernels that spill: {spills}")
 
     problems = [scen.random_connected(256, 32, seed=s) for s in range(64)]
-    stacked = pad.stack_problems(problems)
+    stacked, _ = pad.stack_problems(problems)
+    fleet_problems = fleet.sample_fleet(FLEET_B, seed=0, n_range=FLEET_N_RANGE, apps_range=FLEET_APPS_RANGE,
+                                        partitions=(1, 2, 3))
 
-    summary = phase1(scen, _build, stacked)
+    summary = phase1(scen, _build, stacked, fleet_problems)
     summary.update(phase1_flash())
     _build.reset_launches()
     counter = Counter(_build)
@@ -961,6 +1281,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg, params = phase5(counter)
     phase6(counter, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    fleet_err = phase7(core, counter, fleet_problems)
+    for name, e in fleet_err.items():
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], e)
 
     sources = {
         "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",

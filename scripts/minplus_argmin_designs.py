@@ -193,7 +193,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     ints = torch.randint(1, 5, (2, 64, 256, 256), generator=gen, device="cuda").float()
     ints = torch.where(torch.rand(ints.shape, generator=gen, device="cuda") < 0.5, ints, 1e18)
-    w256 = zero_load_dp(pad.stack_problems([scen.random_connected(256, 32, seed=s) for s in range(64)]))
+    w256 = zero_load_dp(pad.stack_problems([scen.random_connected(256, 32, seed=s) for s in range(64)])[0])
     w1024 = zero_load_dp(stack_single(scen.random_connected(1024, 4, seed=1)))
     cases = [("B=64 V=256 nexthop", w256, apsp(w256)), ("B=64 V=256 integer ties", ints[0], ints[1]),
              ("B=1 V=1024 nexthop", w1024, apsp(w1024))]

@@ -29,11 +29,21 @@ from .flow import (  # noqa: F401
 )
 from .forwarding import forwarding_sweep, forwarding_update  # noqa: F401
 from .marginals import cost_to_go, link_marginals, round_eval  # noqa: F401
-from .placement import placement_update, repair_phi, structured_init, zero_load_dp  # noqa: F401
+from .placement import (  # noqa: F401
+    blocked_placement_update,
+    blocked_sweep_cert,
+    placement_update,
+    repair_phi,
+    repair_placement,
+    structured_init,
+    zero_load_dp,
+)
 from .engine import (  # noqa: F401
     EngineCarry,
+    EngineTrace,
     engine_solve,
     engine_solve_single,
+    placement_churn,
     round_step,
     stack_single,
 )

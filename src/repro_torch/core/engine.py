@@ -11,6 +11,13 @@ and `m < m_max`, reading one `any(active)` scalar per round (the only host
 sync of the loop). Frozen lanes are masked out of every carry update, so
 extra rounds driven by live lanes leave them bit-identical, and the
 `[B, m_max + 1]` history is NaN past each lane's freeze point.
+
+The optional round trace (`EngineTrace`, DESIGN.md section 14) is written
+by the same masked column updates as the history, from values the round
+already produced: the solve's outputs are bitwise the same with or without
+it, and it adds no host sync. `lane_chunk=k` runs the same engine on
+consecutive k-lane slices instead of the fused batch, with the same
+per-lane results.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from ..device import solve_device
 from .forwarding import forwarding_update
 from .marginals import round_eval
 from .placement import placement_update, structured_init
-from .structs import CostModel, Problem, State
+from .structs import CostModel, Problem, State, app_live_mask, partition_live_mask
 
 
 def _bwhere(pred: torch.Tensor, a, b):
@@ -44,6 +51,34 @@ def _objective_of(aux):
 
 
 @dataclasses.dataclass(frozen=True)
+class EngineTrace:
+    """Round-trace buffers. Every `[B, m_max + 1]` buffer follows the history
+    contract: column m is written by round m and keeps its init value (NaN,
+    or 0.0 for `live`) wherever the round was not applied to the lane.
+
+    J_comm / J_comp : objective split per applied round (column 0: init)
+    moves           : placement churn, live (app, partition) hosts that
+                      changed in the round; column 0 is 0.0
+    live            : 1.0 iff the round was applied to the lane
+    best_round      : [B] int32 round index of the running best iterate
+    """
+
+    J_comm: torch.Tensor
+    J_comp: torch.Tensor
+    moves: torch.Tensor
+    live: torch.Tensor
+    best_round: torch.Tensor
+
+
+def placement_churn(problem: Problem, new: State, old: State) -> torch.Tensor:
+    """[B] count of live (app, partition) hosts that differ between two
+    batched states; phantom apps and phantom partitions are masked out so
+    padding cannot leak churn."""
+    live = partition_live_mask(problem.apps) * app_live_mask(problem.apps)[..., None]
+    return ((new.hosts() != old.hosts()) * live).sum(dim=(-2, -1))
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineCarry:
     """Everything one ALT round reads and writes.
 
@@ -57,6 +92,7 @@ class EngineCarry:
     active             : [B] bool; False once an instance froze
     m                  : rounds the loop ran
     history            : [B, m_max + 1] objective trace, NaN past freeze
+    trace              : `EngineTrace`, or None when tracing is off
     """
 
     state: State
@@ -69,6 +105,7 @@ class EngineCarry:
     active: torch.Tensor
     m: int
     history: torch.Tensor
+    trace: EngineTrace | None = None
 
 
 def round_step(
@@ -102,8 +139,24 @@ def round_step(
     best_J_nxt = torch.minimum(J, carry.best_J)
 
     active = carry.active
+    col = carry.m + 1
     history = carry.history.clone()
-    history[:, carry.m + 1] = torch.where(active, J, torch.nan)
+    history[:, col] = torch.where(active, J, torch.nan)
+    trace = carry.trace
+    if trace is not None:
+        # Inactive lanes store exactly the buffer's init value.
+        moved = placement_churn(problem, nxt, carry.state)
+        j_comm, j_comp, moves, live = (
+            x.clone() for x in (trace.J_comm, trace.J_comp, trace.moves, trace.live)
+        )
+        j_comm[:, col] = torch.where(active, aux_nxt["J_comm"], torch.nan)
+        j_comp[:, col] = torch.where(active, aux_nxt["J_comp"], torch.nan)
+        moves[:, col] = torch.where(active, moved.to(moves.dtype), torch.nan)
+        live[:, col] = active.to(live.dtype)
+        trace = EngineTrace(
+            J_comm=j_comm, J_comp=j_comp, moves=moves, live=live,
+            best_round=torch.where(active & is_best, col, trace.best_round),
+        )
     return EngineCarry(
         state=_bwhere(active, nxt, carry.state),
         aux=_bwhere(active, aux_nxt, carry.aux),
@@ -115,46 +168,14 @@ def round_step(
         active=active & (stall_nxt < patience),
         m=carry.m + 1,
         history=history,
+        trace=trace,
     )
 
 
-@torch.no_grad()
-def engine_solve(
-    stacked: Problem,
-    *,
-    m_max: int,
-    t_phi: int,
-    alpha: float,
-    tol: float,
-    patience: int,
-    colocate: bool = False,
-    track_best: bool = True,
-    solver: str = "neumann",
-    block_apps: int = 1,
-    keep_state: bool = True,
-    init_state: State | None = None,
-    active0: torch.Tensor | None = None,
-    device: str | torch.device = "cuda",
-) -> dict:
-    """Run the alternating method on a stacked `[B, ...]` problem on
-    `device`, which must be where the problem's tensors live (a CUDA request
-    without a GPU raises; pass device="cpu" to solve on the CPU).
-
-    `init_state` seeds the loop from a caller-provided `[B, ...]` State
-    instead of `structured_init`; `active0` [B] bool freezes lanes from
-    round 0 (a frozen-from-start lane returns its init evaluation).
-
-    Returns a dict (leading axis B throughout):
-      J / J_comm / J_comp : final objective split (best iterate, or the
-                            final state when `track_best=False`)
-      state               : the returned State (absent if not keep_state)
-      hosts               : [B, A, P] partition hosts of the returned state
-      history             : [B, m_max + 1] objective trace, NaN past freeze
-      iters               : [B] int32 rounds applied per instance
-      rounds              : int, loop trips actually executed
-      trace               : None (the round trace is not ported yet)
-    """
-    dev = solve_device(stacked.device, device)
+def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate, track_best,
+                        solver, trace, block_apps, keep_state, init_state, active0, dev) -> dict:
+    """The fused-batch engine: init, then one lockstep round loop over every
+    lane of `stacked` (see `engine_solve`)."""
     if init_state is None:
         state0 = structured_init(stacked, colocate=colocate)
     else:
@@ -163,6 +184,19 @@ def engine_solve(
     batch = J0.shape[0]
     history = torch.full((batch, m_max + 1), torch.nan, dtype=J0.dtype, device=dev)
     history[:, 0] = J0
+    trace0 = None
+    if trace:
+        def nan_buf(first):
+            buf = torch.full((batch, m_max + 1), torch.nan, dtype=J0.dtype, device=dev)
+            buf[:, 0] = first
+            return buf
+
+        live = torch.zeros((batch, m_max + 1), dtype=J0.dtype, device=dev)
+        live[:, 0] = 1.0
+        trace0 = EngineTrace(
+            J_comm=nan_buf(aux0["J_comm"]), J_comp=nan_buf(aux0["J_comp"]), moves=nan_buf(0.0),
+            live=live, best_round=torch.zeros(batch, dtype=torch.int32, device=dev),
+        )
     if active0 is None:
         active = torch.ones(batch, dtype=torch.bool, device=dev)
     else:
@@ -178,6 +212,7 @@ def engine_solve(
         active=active,
         m=0,
         history=history,
+        trace=trace0,
     )
     while carry.m < m_max and bool(carry.active.any()):
         carry = round_step(
@@ -196,10 +231,100 @@ def engine_solve(
         "history": carry.history,
         "iters": carry.iters,
         "rounds": carry.m,
-        "trace": None,
+        "trace": carry.trace,
     }
     if keep_state:
         out["state"] = out_state
+    return out
+
+
+def _lanes(x, sl: slice):
+    """Lanes `sl` of a stacked Problem / State / tensor (None passes)."""
+    if x is None or isinstance(x, (int, float, str)):
+        return x
+    if isinstance(x, torch.Tensor):
+        return x[sl]
+    return type(x)(**{f.name: _lanes(getattr(x, f.name), sl) for f in dataclasses.fields(x)})
+
+
+def _concat(outs: list):
+    """Join per-slice engine outputs along the lane axis."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.cat(outs)
+    return type(first)(**{
+        f.name: _concat([getattr(o, f.name) for o in outs]) for f in dataclasses.fields(first)
+    })
+
+
+@torch.no_grad()
+def engine_solve(
+    stacked: Problem,
+    *,
+    m_max: int,
+    t_phi: int,
+    alpha: float,
+    tol: float,
+    patience: int,
+    colocate: bool = False,
+    track_best: bool = True,
+    solver: str = "neumann",
+    trace: bool = False,
+    block_apps: int = 1,
+    lane_chunk: int | None = 0,
+    keep_state: bool = True,
+    init_state: State | None = None,
+    active0: torch.Tensor | None = None,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Run the alternating method on a stacked `[B, ...]` problem on
+    `device`, which must be where the problem's tensors live (a CUDA request
+    without a GPU raises; pass device="cpu" to solve on the CPU).
+
+    `init_state` seeds the loop from a caller-provided `[B, ...]` State
+    instead of `structured_init`; `active0` [B] bool freezes lanes from
+    round 0 (a frozen-from-start lane returns its init evaluation).
+    `trace=True` carries the round trace out as `out["trace"]`; every
+    other output is bitwise the same either way. `lane_chunk` picks the
+    layout over the instance axis: 0 or None = the fused batch, one round
+    loop over all lanes; k >= 1 = the same engine on consecutive k-lane
+    slices, each with its own early exit. Per-lane results are the same in
+    both layouts (bitwise on the CPU; on the card the Neumann and min-plus
+    kernels do not depend on the batch, PyTorch's reductions may).
+
+    Returns a dict (leading axis B throughout):
+      J / J_comm / J_comp : final objective split (best iterate, or the
+                            final state when `track_best=False`)
+      state               : the returned State (absent if not keep_state)
+      hosts               : [B, A, P] partition hosts of the returned state
+      history             : [B, m_max + 1] objective trace, NaN past freeze
+      iters               : [B] int32 rounds applied per instance
+      rounds              : int, loop trips executed (the slowest slice's)
+      trace               : `EngineTrace`, or None when `trace=False`
+    """
+    dev = solve_device(stacked.device, device)
+    if lane_chunk is not None and lane_chunk < 0:
+        raise ValueError(f"lane_chunk must be >= 0, got {lane_chunk}")
+    kw = dict(
+        m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience, colocate=colocate,
+        track_best=track_best, solver=solver, trace=trace, block_apps=block_apps,
+        keep_state=keep_state, dev=dev,
+    )
+    if not lane_chunk:
+        return _engine_solve_batch(stacked, init_state=init_state, active0=active0, **kw)
+    if active0 is not None:
+        active0 = torch.as_tensor(active0, device=dev).reshape(-1).to(torch.bool)
+    batch = stacked.net.adj.shape[0]
+    outs = []
+    for i in range(0, batch, lane_chunk):
+        sl = slice(i, min(i + lane_chunk, batch))
+        outs.append(_engine_solve_batch(
+            _lanes(stacked, sl), init_state=_lanes(init_state, sl), active0=_lanes(active0, sl), **kw
+        ))
+    out = {k: _concat([o[k] for o in outs]) for k in outs[0] if k != "rounds"}
+    out["rounds"] = max(o["rounds"] for o in outs)
     return out
 
 
@@ -228,13 +353,13 @@ def stack_single(problem: Problem) -> Problem:
 def _squeeze(v):
     if isinstance(v, torch.Tensor):
         return v[0]
-    if isinstance(v, State):
-        return State(x=v.x[0], phi=v.phi[0])
+    if isinstance(v, (State, EngineTrace)):
+        return type(v)(**{f.name: getattr(v, f.name)[0] for f in dataclasses.fields(v)})
     return v
 
 
 def engine_solve_single(problem: Problem, **kw) -> dict:
     """Sequential entry point: the engine at B=1, squeezed (`rounds` stays
-    an int; `trace` None)."""
+    an int)."""
     out = engine_solve(stack_single(problem), **kw)
     return {k: _squeeze(v) if k != "rounds" else v for k, v in out.items()}

@@ -1,8 +1,9 @@
-"""Host-side observability of the serve path: span tracing (`trace`) and a
-process-local metrics registry (`metrics`), copies of the JAX package's
-modules of the same names. The round traces and phase profiler of the
-solver (`obs/roundtrace.py`, `obs/phases.py`) are not ported yet."""
+"""Host-side observability: span tracing (`trace`), a process-local
+metrics registry (`metrics`) and the fleet's round trace (`roundtrace`),
+copies of the JAX package's modules of the same names. The phase profiler
+(`obs/phases.py`) is not ported yet."""
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, registry  # noqa: F401
+from .roundtrace import FleetTrace  # noqa: F401
 from .trace import (  # noqa: F401
     TRACER,
     SpanEvent,

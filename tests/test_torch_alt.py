@@ -92,17 +92,17 @@ def _assert_lane_equal(batch, i, single):
 def test_engine_batch_equals_single_lanes_bitwise():
     probs = _instances()
     hb = unify_hop_bound(probs)
-    out = T.engine_solve(stack_problems(probs), **ENGINE_KW)
+    out = T.engine_solve(stack_problems(probs)[0], **ENGINE_KW)
     assert out["J"].shape == (3,) and out["history"].shape == (3, 7)
     assert out["trace"] is None and out["rounds"] == int(out["iters"].max())
     for i, p in enumerate(probs):
-        one = T.engine_solve(stack_problems([dataclasses.replace(p, hop_bound=hb)]), **ENGINE_KW)
+        one = T.engine_solve(stack_problems([dataclasses.replace(p, hop_bound=hb)])[0], **ENGINE_KW)
         _assert_lane_equal(out, i, one)
 
 
 def test_engine_frozen_lanes_inert():
     probs = _instances()
-    stacked = stack_problems(probs)
+    stacked, _ = stack_problems(probs)
     full = T.engine_solve(stacked, **ENGINE_KW)
     out = T.engine_solve(stacked, active0=torch.tensor([True, False, True]), **ENGINE_KW)
     assert int(out["iters"][1]) == 0
@@ -120,7 +120,7 @@ def test_engine_frozen_lanes_inert():
 
 def test_engine_warm_start_from_state():
     probs = _instances()
-    stacked = stack_problems(probs)
+    stacked, _ = stack_problems(probs)
     first = T.engine_solve(stacked, **ENGINE_KW)
     warm = T.engine_solve(stacked, init_state=first["state"], **ENGINE_KW)
     torch.testing.assert_close(warm["history"][:, 0], first["J"], rtol=1e-5, atol=0)
@@ -136,20 +136,28 @@ def test_unknown_kwargs_raise():
 
 
 def test_blocked_sweep_not_ported_raises():
+    """The blocked sweep, once unported, now solves: block_apps=4 gives the
+    sequential scan's result, and only a negative block size raises (the
+    test keeps the name it had while the sweep raised)."""
     p = T.iot(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.solve_alt(p, block_apps=4, m_max=2, device="cpu")
+    want = T.solve_alt(p, m_max=2, device="cpu")
+    got = T.solve_alt(p, block_apps=4, m_max=2, device="cpu")
+    assert got.J == want.J and torch.equal(got.state.hosts(), want.state.hosts())
+    with pytest.raises(ValueError, match="block_apps"):
+        T.solve_alt(p, block_apps=-1, m_max=2, device="cpu")
 
 
 def test_stack_problems_rejects_ragged_and_mixed():
+    """Ragged instances are padded to one envelope now; mixed cost kinds and
+    an empty batch still raise."""
     a = T.random_connected(12, 4, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="one \\(V, A, P\\) shape"):
-        stack_problems([a, T.random_connected(14, 4, seed=0, device="cpu")])
+    ragged, info = stack_problems([a, T.random_connected(14, 4, seed=0, device="cpu")])
+    assert ragged.net.adj.shape == (2, 14, 14) and info.node_mask.sum(dim=1).tolist() == [12.0, 14.0]
     lin = dataclasses.replace(a, cost=T.CostModel(kind="linear"))
     with pytest.raises(ValueError, match="mixes cost kinds"):
         stack_problems([a, lin])
     with pytest.raises(ValueError, match="empty"):
         stack_problems([])
-    s = stack_problems([a, dataclasses.replace(a, hop_bound=None)])
+    s, _ = stack_problems([a, dataclasses.replace(a, hop_bound=None)])
     assert s.hop_bound == max(a.hop_bound, a.net.n_nodes + 1)
     assert s.cost.rho_max.shape == (2,)

@@ -13,11 +13,13 @@ import torch
 
 import repro_torch
 from repro_torch.configs import reduced_config
+from repro_torch import fleet
 from repro_torch.core import alt, engine, scenarios, structs
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
+from repro_torch.launch import fleet as fleet_cli
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_params
 from repro_torch.models.convert import params_from_jax, params_to_numpy
@@ -102,6 +104,13 @@ def test_constructors_and_solvers_default_to_cuda(monkeypatch):
         lambda: engine.engine_solve(engine.stack_single(cpu_problem), m_max=1, t_phi=1,
                                     alpha=0.5, tol=1e-3, patience=1),
         lambda: repro_torch.resolve_device(),
+        lambda: fleet.sample_fleet(2),
+        lambda: fleet.erdos_renyi(12, 4),
+        lambda: fleet.perturbed_geant(),
+        lambda: fleet.solve_fleet([cpu_problem]),
+        lambda: fleet.solve_fleet([cpu_problem], method="CongUnaware"),
+        lambda: fleet.solve_sequential([cpu_problem]),
+        lambda: fleet_cli.main(["--instances", "1"]),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
