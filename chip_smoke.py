@@ -7,7 +7,7 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` or an argmin kernel spills), then runs seven phases,
+`neumann_cols_kernel` or an argmin kernel spills), then runs nine phases,
 each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
@@ -16,7 +16,10 @@ each printing JSON lines:
      must launch `c2_resident`, and for the cols kernel also at V = 8200, bf16 operands
      2e-2; min-plus and its argmin bitwise, ragged shapes included, and
      the argmin also on ties past its first chunk, all-BIG and all-+INF
-     lines, K = 1 and K = 4200 in each of its variants; flash
+     lines, K = 1 and K = 4200 in each of its variants; all four solver
+     kernels at phase 9's first Pareto chunk (V = 32, 327 lanes) and
+     min-plus at the warm hop-bound closure's masked product (B = 1,
+     V = 256, operands almost all BIG); flash
      attention 1e-4 in fp32 and 2e-2 in bf16, fully masked rows exactly 0),
      with CUDA-event times, the plain version's time, a PyTorch-call
      yardstick (for Neumann the dense LU solve), and the card's bound;
@@ -51,9 +54,24 @@ each printing JSON lines:
      solver kernel launched. Each solver kernel is also held to its plain
      version on the inputs of one padded round (pad nodes, pad apps,
      phantom stages), and one sweep's device operations are counted at
-     both block sizes.
+     both block sizes;
+  8. the control plane: `run_control` over phase 7's fleet for 50 fault
+     epochs (trace seed 11: node kills, link degradations, a flash crowd;
+     m_max 8, t_phi 5), with the warm hop-bound closure and the cached
+     zero-load APSP held bitwise to from-scratch solves on every epoch and
+     the cold comparison on; every epoch finite and feasible, the APSP
+     cache hit, the warm closure swept on a node-churn epoch, warm rounds
+     no more than cold ones; one node-churn epoch's min-plus inputs
+     replayed through each kernel and its plain version, bitwise; one event
+     epoch's device idle share; and a small control loop (4 iot_hierarchy
+     instances, 12 epochs) on the card against the CPU, epoch for epoch;
+  9. the Pareto sweep: `sweep_zoo()` at the CLI's defaults (12 archs, iot
+     and mesh, 1,176 candidates in chunks under the 2 GB cap), its fronts
+     checked (`check_fronts`, every J finite), and a two-arch sub-sweep on
+     the card against the CPU (J at rtol 1e-5, fronts equal up to
+     near-ties: points whose objectives agree to 1e-5 may swap).
 
-Kernel launches are counted only while the main paths run (phases 2-7),
+Kernel launches are counted only while the main paths run (phases 2-9),
 by kernel and by variant; every kernel must have launched there, every
 phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
 of more than one CTA, and every phase-5 prefill flash launch the wgmma
@@ -256,8 +274,10 @@ def neumann_hops_used(w, b, hops, tol, transpose):
     return int(used.sum())
 
 
-def phase1(scen, build, stacked256, fleet_problems):
-    """Each kernel vs its plain version at the main path's shapes."""
+def phase1(scen, build, stacked256, fleet_problems, pareto_chunk, warm_mm):
+    """Each kernel vs its plain version at the main path's shapes, with
+    phase 9's first Pareto chunk (V = 32) and the warm hop-bound closure's
+    masked product (B = 1, V = 256, operands almost all BIG)."""
     import torch
     from repro_torch.core import forwarding_update, stack_single, stage_traffic, structured_init
     from repro_torch.core.flow import _source_injection, _stage_gates
@@ -293,16 +313,17 @@ def phase1(scen, build, stacked256, fleet_problems):
     c2_lane = next(p for p in fleet_problems
                    if _variant(*_cols_cluster(p.net.n_nodes)) == _variant(*_rows_cluster(p.net.n_nodes, 4)) == c2)
     c2_v = c2_lane.net.n_nodes
-    # (V, stacked problem, is the phase-3 shape that heads the kernels line)
+    # (V, stacked problem, is the phase-3 shape that heads the kernels line, label)
     cases = [
-        (17, stack_single(scen.iot()), False),
-        (64, rc64, False),
-        (c2_v, stack_single(c2_lane), False),
-        (256, stacked256, True),
-        (1024, rc1024, False),
-        (1280, stack_single(scen.random_connected(1280, 4, seed=1)), False),
+        (17, stack_single(scen.iot()), False, ""),
+        (32, pareto_chunk, False, "Pareto chunk 0: "),
+        (64, rc64, False, ""),
+        (c2_v, stack_single(c2_lane), False, ""),
+        (256, stacked256, True, ""),
+        (1024, rc1024, False, ""),
+        (1280, stack_single(scen.random_connected(1280, 4, seed=1)), False, ""),
     ]
-    for v, prob, headline in cases:
+    for v, prob, headline, label in cases:
         state = forwarding_update(prob, structured_init(prob), t_phi=2)
         hops = effective_hops(prob.hop_bound, v, fixed_loop=True)
         # The traffic scan's solves: stage k's operators [B, A, V, V] as a
@@ -347,7 +368,7 @@ def phase1(scen, build, stacked256, fleet_problems):
                     # not the same hop-capped function.
                     lhs = torch.eye(v, device="cuda") - (wd.float().mT if transpose else wd.float())
                     keep(name, {
-                        "kernel": name, "shape": f"N={n_ops} V={v} {str(dt)[6:]} stage {k}", "variant": variant,
+                        "kernel": name, "shape": f"{label}N={n_ops} V={v} {str(dt)[6:]} stage {k}", "variant": variant,
                         "hops_cap": hops, "hops_used_mean": used / n_ops, "max_abs_err": err,
                         "ms": cuda_ms(lambda: neumann_propagate(wd, b, hops=hops, transpose=transpose), reps),
                         "plain_ms": cuda_ms(lambda: neumann_propagate_ref(wd, b, hops, 1e-6, transpose), 2, 1),
@@ -401,13 +422,18 @@ def phase1(scen, build, stacked256, fleet_problems):
         return torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5, ints, 1e18)
 
     mp_cases = [
-        (17, stack_single(scen.iot()), False), (64, rc64, False),
+        (17, stack_single(scen.iot()), False), (32, pareto_chunk, False), (64, rc64, False),
         (200, stack_single(scen.random_connected(200, 8, seed=2)), False), (256, stacked256, True),
-        (1024, rc1024, False), (None, None, False),
+        (1024, rc1024, False), (None, None, False), (256, "warm", False),
     ]
     for v, prob, headline in mp_cases:
         if prob is None:
             products = [("ragged integer ties", integers((3, 130, 200)), integers((3, 200, 129)))]
+        elif prob == "warm":
+            # The warm closure's masked product: A keeps the touched nodes'
+            # columns of the old distances, B their rows, the rest is BIG;
+            # the data needs only the candidates through a touched node.
+            products = [("warm hop-bound closure, masked", warm_mm[0][None], warm_mm[1][None])]
         else:
             w = zero_load_dp(prob)
             eye = torch.eye(v, dtype=torch.bool, device="cuda")
@@ -415,7 +441,8 @@ def phase1(scen, build, stacked256, fleet_problems):
             products = [("apsp", d, d), ("nexthop", w, apsp(w)), ("integer ties", integers(w.shape), integers(w.shape))]
         for tag, a_, b_ in products:
             (nb, m, kk), nn = a_.shape, b_.shape[-1]
-            for name in ("minplus", "minplus_argmin"):
+            # The warm closure runs only the product; every other case both kernels.
+            for name in ("minplus",) if "masked" in tag else ("minplus", "minplus_argmin"):
                 if name == "minplus":
                     fn = lambda: minplus_matmul(a_, b_)  # noqa: E731
                     plain = lambda: minplus_matmul_ref(a_, b_)  # noqa: E731
@@ -434,13 +461,19 @@ def phase1(scen, build, stacked256, fleet_problems):
                     raise AssertionError(f"{name} {tuple(a_.shape)} (x) {tuple(b_.shape)} {tag}: "
                                          "not bitwise equal to the plain version")
                 del got, want
-                shape = f"B={nb} V={v} {tag}" if v else f"B={nb} M={m} K={kk} N={nn} {tag}"
+                label = "Pareto chunk 0: " if prob is pareto_chunk else ""
+                shape = f"{label}B={nb} V={v} {tag}" if v else f"B={nb} M={m} K={kk} N={nn} {tag}"
                 row = {"kernel": name, "shape": shape, "max_abs_err": err}
                 if name == "minplus_argmin":
                     row["variant"] = argmin_variant(nb, m, kk, nn)
                 if "integer" not in tag:
                     out_bytes = nb * m * nn * (12 if name == "minplus_argmin" else 4)
-                    instructions = 2 * nb * m * kk * nn
+                    # Candidates this data needs: every k, or for the masked
+                    # product only the k (touched nodes) where A is finite.
+                    live_k = int((a_ < 1e18).any(dim=-2).sum()) if "masked" in tag else nb * kk
+                    instructions = 2 * m * live_k * nn
+                    if "masked" in tag:
+                        row.update(touched_nodes=live_k, big_share=float((a_ >= 1e18).float().mean()))
                     row.update({
                         "ms": cuda_ms(fn, 10 if m <= 256 else 3),
                         "plain_ms": cuda_ms(plain, 2, 1),
@@ -502,6 +535,35 @@ def phase1(scen, build, stacked256, fleet_problems):
     build.reset_launches()
     emit({"phase": 1, "name": "kernels_vs_plain", "rows": rows})
     return summary
+
+
+def pareto_first_chunk(fleet):
+    """The first chunk `sweep_zoo()` solves at the CLI's defaults, stacked
+    as `solve_fleet` stacks it (the whole sweep's envelope and hop bound)."""
+    from repro_torch.configs import ZOO
+    from repro_torch.partition import pareto
+
+    cand = {a: pareto._normalized_candidates(a, seq_len=256, n_out_tokens=32, parts=(1, 2, 3, 4), max_per_p=16)
+            for a in ZOO}
+    problems, _ = pareto.candidate_fleet(cand, ("iot", "mesh"), (1.0,), (0.5,), "cuda")
+    chunk = fleet.envelope_cap_chunk(problems, round_to=8, n_devices=1, cap_gb=2.0)
+    stacked, _ = fleet.stack_problems(
+        problems[:chunk], round_to=8, envelope=fleet.fleet_envelope(problems, round_to=8),
+        hop_bound=fleet.unify_hop_bound(problems), n_parts=fleet.fleet_part_envelope(problems))
+    return stacked
+
+
+def warm_closure_operands(core, prob):
+    """The masked product of the warm hop-bound closure after the first
+    removable non-endpoint node of `prob` dies: (A, B), [V, V] each."""
+    from repro_torch import chaos
+
+    adj = prob.net.adj.cpu().numpy()
+    ends = chaos.events._protected_nodes(prob)
+    node = next(v for v in range(adj.shape[0]) if v not in ends and chaos.events._connected_without(adj, {v}))
+    cache = core.hop_bound_cache(prob.net)
+    broken, _ = chaos.apply_health(prob, chaos.InstanceHealth(down=frozenset({node})))
+    return record_kernel_calls(lambda: core.hop_bound_cache(broken.net, cache))["minplus_matmul"][0][0]
 
 
 def argmin_variant(nb, m, kk, nn) -> str:
@@ -765,6 +827,36 @@ def connected_without(adj, dead) -> bool:
     return _graphs.is_connected(g)
 
 
+def record_kernel_calls(fn) -> dict:
+    """Run `fn()` and return the inputs it handed to the kernel wrappers,
+    by wrapper name: [(args, kwargs), ...]. The wrappers are replaced in
+    their ops modules and in `kernels.minplus`, whose names the hop-bound
+    closure imports."""
+    from repro_torch.kernels import minplus as mp_pkg
+    from repro_torch.kernels.minplus import ops as mp_ops
+    from repro_torch.kernels.neumann import ops as nm_ops
+
+    calls = {"neumann_propagate": [], "minplus_matmul": [], "minplus_matmul_argmin": []}
+    places = [(nm_ops, "neumann_propagate"), (mp_ops, "minplus_matmul"), (mp_ops, "minplus_matmul_argmin"),
+              (mp_pkg, "minplus_matmul"), (mp_pkg, "minplus_matmul_argmin")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in places]
+
+    def recorder(name, wrapper):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return wrapper(*args, **kw)
+        return record
+
+    for mod, name, wrapper in saved:
+        setattr(mod, name, recorder(name, wrapper))
+    try:
+        fn()
+    finally:
+        for mod, name, wrapper in saved:
+            setattr(mod, name, wrapper)
+    return calls
+
+
 def fleet_kernels_vs_plain(core, stacked, state) -> dict:
     """The solver kernels against their plain versions on the fleet's own
     padded inputs: every Neumann solve of one `round_eval` (traffic and
@@ -781,26 +873,15 @@ def fleet_kernels_vs_plain(core, stacked, state) -> dict:
     from repro_torch.kernels.neumann import neumann_propagate_ref
     from repro_torch.kernels.neumann import ops as nm_ops
 
-    calls = {"neumann_propagate": [], "minplus_matmul": [], "minplus_matmul_argmin": []}
-    modules = {"neumann_propagate": nm_ops, "minplus_matmul": mp_ops, "minplus_matmul_argmin": mp_ops}
-    wrappers = {name: getattr(mod, name) for name, mod in modules.items()}
+    wrappers = {"neumann_propagate": nm_ops.neumann_propagate, "minplus_matmul": mp_ops.minplus_matmul,
+                "minplus_matmul_argmin": mp_ops.minplus_matmul_argmin}
 
-    def recorder(name):
-        def record(*args, **kw):
-            calls[name].append((args, kw))
-            return wrappers[name](*args, **kw)
-        return record
-
-    for name, mod in modules.items():
-        setattr(mod, name, recorder(name))
-    try:
+    def one_round():
         with torch.no_grad():
             _, aux = core.round_eval(stacked, state)
             core.placement_update(stacked, state, aux["ctg"])
-    finally:
-        for name, mod in modules.items():
-            setattr(mod, name, wrappers[name])
-    del aux
+
+    calls = record_kernel_calls(one_round)
 
     err = {"neumann_cols": 0.0, "neumann_rows": 0.0, "minplus": 0.0, "minplus_argmin": 0.0}
     rel = {"neumann_cols": 0.0, "neumann_rows": 0.0}  # max abs error over the largest |x|
@@ -1029,6 +1110,258 @@ def phase7(core, counter, problems):
     del res, blocked, untraced, chunked, stacked, state
     torch.cuda.empty_cache()
     return vs_plain["max_abs_err"]
+
+
+# Phase 8: run_control's CLI defaults over phase 7's fleet, with both
+# exactness gates and the cold comparison on.
+CONTROL_EPOCHS, CONTROL_TRACE_SEED = 50, 11
+CONTROL_KW = dict(m_max=8, t_phi=5, round_to=8)
+CONTROL_SPANS = ("control.chaos", "control.hop_bound", "control.repair", "control.solve", "control.compare_cold")
+
+
+def span_window_idle(fn, span_name: str, index: int) -> dict:
+    """Device busy time and idle share inside the `index`-th `span_name`
+    span of `fn()`, from one torch.profiler capture: obs spans are profiler
+    ranges while tracing is on, and every device operation that starts in
+    the span's host interval counts (one stream: they do not overlap). The
+    span must end in a device sync for the share to cover its work. "not
+    measured" if the capture has no such span or no device operation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    windows = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.name == span_name and e.device_type == cpu)
+    if len(windows) <= index:
+        return {"idle_share": "not measured"}
+    t0, t1 = windows[index]
+    ops = [e.time_range.end - e.time_range.start for e in events
+           if e.device_type == cuda and t0 <= e.time_range.start < t1
+           and not e.name.startswith(("control.", "solve_fleet.", "launch.", "pareto."))]
+    if not ops:
+        return {"idle_share": "not measured"}
+    busy = sum(ops)
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3, "device_ops": len(ops),
+            "idle_share": max(0.0, 1.0 - busy / (t1 - t0))}
+
+
+def churn_epoch_vs_plain(core, chaos, fleet, problems, trace) -> dict:
+    """One node-churn epoch's kernel inputs, recorded and replayed: the warm
+    hop-bound closure of each instance a node event touched (its masked
+    product, then the squarings) and `refresh_apsp0` over the epoch's fleet
+    (the APSP squarings and the next-hop argmin at B = 64), through each
+    kernel and its plain version, bitwise."""
+    import torch
+    from repro_torch.kernels.minplus import minplus_matmul_argmin_ref, minplus_matmul_ref
+    from repro_torch.kernels.minplus import ops as mp_ops
+
+    timeline = list(trace.timeline())
+    epoch = next(e for e, fired, _ in timeline if e > 0 and any(
+        ev.kind in (chaos.NODE_DOWN, chaos.NODE_UP) for ev in fired))
+    before, (_, fired, after) = timeline[epoch - 1][2], timeline[epoch]
+    insts = sorted({ev.instance for ev in fired if ev.kind in (chaos.NODE_DOWN, chaos.NODE_UP)})
+    probs = [chaos.apply_health(p, h)[0] for p, h in zip(problems, after)]
+    caches = {i: core.hop_bound_cache(chaos.apply_health(problems[i], before[i])[0].net) for i in insts}
+    env = dict(round_to=CONTROL_KW["round_to"], envelope=fleet.fleet_envelope(problems, round_to=CONTROL_KW["round_to"]),
+               n_parts=fleet.fleet_part_envelope(problems), hop_bound=fleet.unify_hop_bound(problems))
+    warm, sweeps = [], []
+    for i in insts:
+        calls = record_kernel_calls(lambda i=i: sweeps.append(core.hop_bound_cache(probs[i].net, caches[i]).sweeps))
+        warm += calls["minplus_matmul"]
+    apsp0 = record_kernel_calls(lambda: chaos.refresh_apsp0(probs, None, **env))
+    seen = {"epoch": epoch, "instances": insts, "warm_sweeps": sweeps, "warm_products": len(warm),
+            "apsp0_products": len(apsp0["minplus_matmul"]), "apsp0_argmin_products": len(apsp0["minplus_matmul_argmin"])}
+    if not (min(sweeps) >= 1 and seen["apsp0_products"] and seen["apsp0_argmin_products"]):
+        raise AssertionError(f"phase 8: the recorded churn epoch lacks a warm sweep or an APSP: {seen}")
+    for (a_, b_), _ in warm + apsp0["minplus_matmul"]:
+        if not torch.equal(mp_ops.minplus_matmul(a_, b_), minplus_matmul_ref(a_, b_)):
+            raise AssertionError(f"phase 8: minplus {tuple(a_.shape)} not bitwise equal to the plain version")
+    for (a_, b_), _ in apsp0["minplus_matmul_argmin"]:
+        got, want = mp_ops.minplus_matmul_argmin(a_, b_), minplus_matmul_argmin_ref(a_, b_)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"phase 8: minplus_argmin {tuple(a_.shape)} not bitwise equal to the plain version")
+    a_, _ = warm[0][0]
+    seen["masked_product_touched_nodes"] = int((a_ < 1e18).any(dim=0).sum())
+    seen["masked_product_big_share"] = float((a_ >= 1e18).float().mean())
+    return seen
+
+
+def phase8(core, counter, problems):
+    """The control plane: `run_control` over phase 7's fleet and a 50-epoch
+    fault trace, with both exactness gates (the warm hop-bound closure and
+    the cached zero-load APSP held bitwise to from-scratch solves on every
+    epoch) and the cold comparison; a replay of one node-churn epoch's
+    min-plus inputs; one event epoch's device idle share; and the small
+    control loop on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import chaos, fleet
+    from repro_torch.launch import control
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+
+    trace = chaos.generate_trace(problems, CONTROL_EPOCHS, seed=CONTROL_TRACE_SEED)
+    obs_metrics.registry.reset()
+    obs_trace.configure(enabled=True)
+    obs_trace.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctl = counter.run(lambda: control.run_control(
+        problems, trace=trace, verify_hop_bound=True, verify_apsp0=True, compare_cold=True, **CONTROL_KW))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, argmin_variants = counter.last, counter.last_variants["minplus_argmin"]
+    spans = {}
+    for e in obs_trace.TRACER.events():
+        spans.setdefault(e.name, []).append(e.dur)
+    obs_trace.configure(enabled=False)
+    snap = obs_metrics.registry.snapshot()
+    summ = ctl.summary()
+
+    bad = [r.epoch for r in ctl.reports if not (r.finite and r.feasible and np.isfinite(r.J_median))]
+    if bad or summ["infeasible_epochs"] or summ["nonfinite_epochs"]:
+        raise AssertionError(f"phase 8: epochs {bad} not finite and feasible: {summ}")
+    if not snap.get("control.apsp0.hits", 0) > 0:
+        raise AssertionError("phase 8: the zero-load APSP cache never hit")
+    if not snap.get("control.hop_bound.warm_sweeps", 0) > 0:
+        raise AssertionError("phase 8: the warm hop-bound closure took no sweep on a node-churn epoch")
+    if not summ["warm_rounds_executed"] <= summ.get("cold_rounds_executed", -1):
+        raise AssertionError(f"phase 8: warm rounds {summ['warm_rounds_executed']} above cold "
+                             f"{summ.get('cold_rounds_executed')} on event epochs")
+    for name in ("neumann_cols", "neumann_rows", "minplus", "minplus_argmin"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 8: {name} never launched")
+    replay = churn_epoch_vs_plain(core, chaos, fleet, problems, trace)
+
+    # One event epoch's device idle share: epoch 1 of a two-epoch trace that
+    # kills the trace's first killed node (the solve's gather of J syncs).
+    first = next(ev for ev in trace.events if ev.kind == chaos.NODE_DOWN)
+    two = chaos.FaultTrace((dataclasses.replace(first, epoch=1),), 2, len(problems))
+    obs_trace.configure(enabled=True)
+    idle = span_window_idle(lambda: control.run_control(problems, trace=two, **CONTROL_KW), "control.epoch", 1)
+    obs_trace.configure(enabled=False)
+    obs_trace.reset()
+
+    # The small control loop (four iot_hierarchy instances, 12 epochs) on the
+    # card and on the CPU: the same epochs, J_median at rtol 1e-5, the final
+    # hosts equal but on at most NEAR_TIE_LANES lanes.
+    def small(device):
+        base = fleet.sample_fleet(4, families=["iot_hierarchy"], seed=2030, device=device)
+        tr = chaos.generate_trace(base, 12, seed=2031, node_failures=3, link_degradations=2, flash_crowds=1)
+        return control.run_control(base, trace=tr, m_max=20, t_phi=5, round_to=8, device=device)
+
+    gpu, cpu = counter.run(lambda: small("cuda")), small("cpu")
+    same = ("mode", "outcome", "rounds", "perturbed")
+    rel = []
+    for g, c in zip(gpu.reports, cpu.reports, strict=True):
+        if any(getattr(g, k) != getattr(c, k) for k in same):
+            raise AssertionError(f"phase 8: epoch {g.epoch} card {[getattr(g, k) for k in same]} vs CPU "
+                                 f"{[getattr(c, k) for k in same]}")
+        rel.append(abs(g.J_median / c.J_median - 1.0))
+    if not max(rel) <= 1e-5:
+        raise AssertionError(f"phase 8: card vs CPU J_median rel {max(rel)}")
+    g_hosts, c_hosts = gpu.state.hosts().cpu(), cpu.state.hosts()
+    differ = [i for i in range(g_hosts.shape[0]) if not torch.equal(g_hosts[i], c_hosts[i])]
+    if len(differ) > NEAR_TIE_LANES:
+        raise AssertionError(f"phase 8: card vs CPU final hosts differ on lanes {differ}")
+
+    emit({
+        "phase": 8, "name": "control", "instances": len(problems), "epochs": CONTROL_EPOCHS,
+        "trace_seed": CONTROL_TRACE_SEED, **CONTROL_KW, "events": summ["events"], "wall_s": wall,
+        "epochs_per_s": summ["epochs_per_s"], "p50_recovery_latency_s": summ["p50_recovery_latency_s"],
+        "p95_recovery_latency_s": summ["p95_recovery_latency_s"],
+        "recovery_latency_s": snap.get("control.recovery_latency_s"),
+        "span_mean_ms": {k: 1e3 * sum(spans.get(k, [0.0])) / max(1, len(spans.get(k, []))) for k in CONTROL_SPANS},
+        "span_count": {k: len(spans.get(k, [])) for k in CONTROL_SPANS},
+        "warm_rounds_executed": summ["warm_rounds_executed"], "cold_rounds_executed": summ.get("cold_rounds_executed"),
+        "fallback_epochs": summ["fallback_epochs"], "warm_epochs": summ["warm_epochs"],
+        "hop_bound": {"max": snap.get("control.hop_bound.max"), **{k.rsplit(".", 1)[-1]: snap.get(k, 0) for k in (
+            "control.hop_bound.warm_sweeps", "control.hop_bound.unchanged", "control.hop_bound.exceeds_pinned")}},
+        "apsp0": {"hits": snap.get("control.apsp0.hits", 0), "misses": snap.get("control.apsp0.misses", 0)},
+        "peak_gb": peak / 1e9, "launches": launches, "argmin_variants": argmin_variants,
+        "event_epoch_device": idle, "churn_epoch_vs_plain": replay,
+        "card_vs_cpu": {"epochs": len(rel), "max_J_median_rel": max(rel), "host_lanes_differ": differ},
+    })
+    del ctl, gpu, cpu
+    torch.cuda.empty_cache()
+
+
+# Phase 9: the Pareto CLI's defaults, every candidate of the zoo.
+PARETO_SUB = dict(archs=("qwen1.5-0.5b", "mamba2-370m"), topologies=("iot",))
+PARETO_OBJECTIVES = ("latency", "compute", "egress")
+
+
+def fronts_agree(ref: dict, got: dict, rtol: float) -> list:
+    """Fronts of one cell agree up to near-ties: every index on one front
+    only needs a partner on the other front whose latency, compute and
+    egress agree with its own within `rtol` in both reports (candidates the
+    arithmetic cannot order, e.g. cut sets that put every partition on one
+    host). Returns those indices; raises if one lacks a partner."""
+    import numpy as np
+
+    fa, fb = set(ref["front"]), set(got["front"])
+
+    def obj(cell, i):
+        return np.array([cell["points"][i][k] for k in PARETO_OBJECTIVES])
+
+    swapped = sorted(fa ^ fb)
+    for i in swapped:
+        other = fb if i in fa else fa
+        if not any(all(np.allclose(obj(c, i), obj(c, j), rtol=rtol, atol=0) for c in (ref, got)) for j in other):
+            raise AssertionError(f"phase 9: {ref['arch']}/{ref['topology']}: front {got['front']} vs "
+                                 f"{ref['front']}, index {i} has no near-tie partner")
+    return swapped
+
+
+def phase9(counter):
+    """The split-point Pareto sweep: `sweep_zoo()` at the CLI's defaults
+    (12 archs, iot and mesh, parts 1-4, 16 cut sets a depth, one batched
+    solve in chunks under the 2 GB envelope cap), its fronts checked, and
+    a sub-sweep on the card against the CPU."""
+    import numpy as np
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.partition import pareto
+
+    obs_metrics.registry.reset()
+    t0 = time.perf_counter()
+    rep = counter.run(pareto.sweep_zoo)
+    wall = time.perf_counter() - t0
+    launches, argmin_variants = counter.last, counter.last_variants["minplus_argmin"]
+    snap = obs_metrics.registry.snapshot()
+    pareto.check_fronts(rep)
+    if not all(np.isfinite(p["J"]) for c in rep["cells"] for p in c["points"]):
+        raise AssertionError("phase 9: a candidate's J is not finite")
+    n_cells = len(rep["archs"]) * len(rep["topologies"]) * len(rep["loads"])
+    if rep["archs"] != list(pareto.ZOO) or len(rep["cells"]) != n_cells or not all(c["front"] for c in rep["cells"]):
+        raise AssertionError(f"phase 9: {len(rep['cells'])} cells of {rep['archs']}, or an empty front")
+    for name in ("neumann_cols", "neumann_rows", "minplus", "minplus_argmin"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 9: {name} never launched")
+
+    gpu = counter.run(lambda: pareto.sweep_zoo(**PARETO_SUB))
+    cpu = pareto.sweep_zoo(**PARETO_SUB, device="cpu")
+    rel, swapped = 0.0, {}
+    for g, c in zip(gpu["cells"], cpu["cells"], strict=True):
+        for pg, pc in zip(g["points"], c["points"], strict=True):
+            rel = max(rel, abs(pg["J"] / pc["J"] - 1.0))
+        swapped[g["arch"]] = fronts_agree(c, g, 1e-5)
+    if not rel <= 1e-5:
+        raise AssertionError(f"phase 9: card vs CPU J rel {rel}")
+    emit({
+        "phase": 9, "name": "pareto", "archs": len(rep["archs"]), "topologies": rep["topologies"],
+        "instances": rep["n_instances"], "chunks": snap.get("fleet.chunks_executed"), "rounds": rep["rounds"],
+        "pad_overhead_fraction": rep["pad_overhead_fraction"], "cut_sets_possible": rep["cut_sets_possible"],
+        "cut_sets_dropped": rep["cut_sets_dropped"], "wall_s": wall, "candidates_per_s": rep["n_instances"] / wall,
+        "front_sizes": {f"{c['arch']}/{c['topology']}": c["front_size"] for c in rep["cells"]},
+        "launches": launches, "argmin_variants": argmin_variants,
+        "card_vs_cpu": {"cells": len(gpu["cells"]), "max_J_rel": rel, "near_tie_front_swaps": swapped},
+    })
 
 
 def profile(fn, families, wall_ms=None) -> dict:
@@ -1269,8 +1602,11 @@ def main() -> int:
     stacked, _ = pad.stack_problems(problems)
     fleet_problems = fleet.sample_fleet(FLEET_B, seed=0, n_range=FLEET_N_RANGE, apps_range=FLEET_APPS_RANGE,
                                         partitions=(1, 2, 3))
+    pareto_chunk = pareto_first_chunk(fleet)
+    warm_mm = warm_closure_operands(core, problems[0])
 
-    summary = phase1(scen, _build, stacked, fleet_problems)
+    summary = phase1(scen, _build, stacked, fleet_problems, pareto_chunk, warm_mm)
+    del pareto_chunk, warm_mm
     summary.update(phase1_flash())
     _build.reset_launches()
     counter = Counter(_build)
@@ -1286,6 +1622,8 @@ def main() -> int:
     fleet_err = phase7(core, counter, fleet_problems)
     for name, e in fleet_err.items():
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], e)
+    phase8(core, counter, fleet_problems)
+    phase9(counter)
 
     sources = {
         "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",

@@ -6,11 +6,13 @@ from .structs import (  # noqa: F401
     BIG_THRESHOLD,
     Apps,
     CostModel,
+    HopBoundCache,
     Network,
     Problem,
     State,
     app_live_mask,
     forwarding_mass,
+    hop_bound_cache,
     infer_hop_bound,
     one_hot,
     partition_live_mask,

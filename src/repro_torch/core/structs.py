@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, solve_device
 
 # A large-but-finite stand-in for +inf: safe under addition in the tropical
 # (min,+) semiring without producing inf-inf NaNs inside kernels.
@@ -175,6 +175,27 @@ class Problem:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class HopBoundCache:
+    """Snapshot of the unweighted distance closure behind one
+    `infer_hop_bound` answer; it lives with the controller.
+
+    adj       : [V, V] bool adjacency the closure was computed for
+    dist      : [V, V] fp32 exact unweighted hop counts (integers below
+                2^24, so every entry is exact in fp32; BIG where unreachable)
+    hop_bound : the derived diameter + 2
+    sweeps    : squaring sweeps the last refresh took (0 = adjacency
+                unchanged, -1 = cold from-scratch solve): the controller's
+                `control.hop_bound.warm_sweeps` metric
+
+    Both tensors stay on the network's device."""
+
+    adj: torch.Tensor
+    dist: torch.Tensor
+    hop_bound: int
+    sweeps: int = -1
+
+
 def _unweighted_seed(adj: torch.Tensor) -> torch.Tensor:
     """[..., V, V] reflexive 1/BIG hop weights for the unweighted closure."""
     v = adj.shape[-1]
@@ -183,23 +204,82 @@ def _unweighted_seed(adj: torch.Tensor) -> torch.Tensor:
     return torch.where(eye, 0.0, w)
 
 
-def infer_hop_bound(net: Network) -> int:
-    """Unweighted graph diameter plus 2 (one host re-injection per stage
-    hand-off), from the min-plus squaring closure of the 1/BIG hop seed.
-    Hop counts are integers, so the closure is exact in fp32. Unbatched
-    networks only: call at problem build time."""
-    from ..kernels.minplus import apsp
-
-    dist = apsp(_unweighted_seed(net.adj)[None])[0]
+def _hop_bound_of(dist: torch.Tensor) -> int:
     diam = float(torch.where(dist < BIG_THRESHOLD, dist, 0.0).max())
     return int(diam) + 2
 
 
-def with_hop_bound(problem: Problem) -> Problem:
+def _warm_unweighted_closure(adj_new: torch.Tensor, cache: HopBoundCache):
+    """Re-close the previous epoch's distances after a local adjacency change.
+
+    Exactness (DESIGN.md section 16): let S be the touched nodes (any row or
+    column of the adjacency delta). An old entry can only be wrong if its
+    optimal path visited S, and every such pair satisfies
+    `min_{s in S} d_old[i,s] + d_old[s,j] <= d_old[i,j]`: one masked (min,+)
+    product finds them all. Those entries are reset to BIG; the survivors
+    are exact path lengths in the NEW graph, so the seed
+    `min(filtered, w_new)` holds every 1-hop edge and only valid upper
+    bounds, and its closure is the from-scratch answer, bitwise (all values
+    are exact fp32 integers). The loop stops one sweep after the fixpoint,
+    reading `closed` on the host once a sweep. Returns (dist, sweeps)."""
+    from ..kernels.minplus import minplus_matmul, squaring_bound
+
+    changed = adj_new != cache.adj
+    touched = changed.any(dim=0) | changed.any(dim=1)  # [V]
+    d_old = cache.dist
+    cols = torch.where(touched[None, :], d_old, BIG)  # keep d_old[i, s]
+    rows = torch.where(touched[:, None], d_old, BIG)  # keep d_old[s, j]
+    via = minplus_matmul(cols, rows)
+    seed = torch.minimum(torch.where(via <= d_old, BIG, d_old), _unweighted_seed(adj_new))
+    sweeps = 0
+    for _ in range(squaring_bound(seed.shape[-1])):
+        nxt = torch.minimum(seed, minplus_matmul(seed, seed))
+        sweeps += 1
+        closed = torch.equal(nxt, seed)
+        seed = nxt
+        if closed:
+            break
+    return seed, sweeps
+
+
+def hop_bound_cache(
+    net: Network, cache: HopBoundCache | None = None, *, device: str | torch.device = "cuda"
+) -> HopBoundCache:
+    """Compute (or incrementally refresh) the unweighted closure behind
+    `infer_hop_bound` for an unbatched network on `device`.
+
+    With a `cache` from a previous round or epoch the refresh starts from
+    the cached distances: bitwise a cold solve (`_warm_unweighted_closure`)
+    in one or two squaring sweeps instead of a full APSP. An unchanged
+    adjacency returns at once."""
+    from ..kernels.minplus import apsp
+
+    solve_device(net.adj.device, device)
+    adj = net.adj > 0
+    if cache is not None and cache.adj.shape == adj.shape:
+        if torch.equal(cache.adj, adj):
+            return dataclasses.replace(cache, sweeps=0)
+        dist, sweeps = _warm_unweighted_closure(adj, cache)
+    else:
+        dist, sweeps = apsp(_unweighted_seed(adj)[None])[0], -1
+    return HopBoundCache(adj=adj, dist=dist, hop_bound=_hop_bound_of(dist), sweeps=sweeps)
+
+
+def infer_hop_bound(net: Network, cache: HopBoundCache | None = None) -> int:
+    """Unweighted graph diameter plus 2 (one host re-injection per stage
+    hand-off), from the min-plus squaring closure of the 1/BIG hop seed on
+    the network's device. Hop counts are integers, so the closure is exact
+    in fp32. Unbatched networks only: call at problem build time. Pass the
+    previous round's `HopBoundCache` to warm-start the closure after a
+    local topology change."""
+    return hop_bound_cache(net, cache, device=net.adj.device).hop_bound
+
+
+def with_hop_bound(problem: Problem, cache: HopBoundCache | None = None) -> Problem:
     """Attach the inferred hop bound (no-op if already carried)."""
     if problem.hop_bound is not None:
         return problem
-    return dataclasses.replace(problem, hop_bound=infer_hop_bound(problem.net))
+    return dataclasses.replace(problem, hop_bound=infer_hop_bound(problem.net, cache))
 
 
 def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:

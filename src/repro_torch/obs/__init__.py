@@ -1,7 +1,8 @@
 """Host-side observability: span tracing (`trace`), a process-local
-metrics registry (`metrics`) and the fleet's round trace (`roundtrace`),
-copies of the JAX package's modules of the same names. The phase profiler
-(`obs/phases.py`) is not ported yet."""
+metrics registry (`metrics`), the fleet's round trace (`roundtrace`) and
+the span-trace validator (`validate`, `python -m repro_torch.obs.validate
+spans.jsonl`), copies of the JAX package's modules of the same names. The
+phase profiler (`obs/phases.py`) is not ported yet."""
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, registry  # noqa: F401
 from .roundtrace import FleetTrace  # noqa: F401
 from .trace import (  # noqa: F401

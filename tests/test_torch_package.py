@@ -19,11 +19,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
+from repro_torch import chaos
+from repro_torch.launch import control as control_cli
 from repro_torch.launch import fleet as fleet_cli
+from repro_torch.launch import pareto as pareto_cli
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_params
 from repro_torch.models.convert import params_from_jax, params_to_numpy
-from repro_torch.partition import run_partition, split_params
+from repro_torch.partition import apps_from_profiles, profile_arch, run_partition, split_params, sweep_zoo
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -85,11 +88,24 @@ def test_no_jax_or_repro_import(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
+def test_import_check_reaches_every_subpackage():
+    """The import rule above walks every module of the port, the control
+    plane and the Pareto search included."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"chaos/__init__.py", "chaos/events.py", "chaos/repair.py", "launch/control.py",
+            "launch/pareto.py", "obs/validate.py", "partition/profile.py",
+            "partition/pareto.py"} <= checked
+    subpackages = {p.parent.name for p in PORT.rglob("__init__.py")}
+    assert {"chaos", "core", "fleet", "kernels", "launch", "models", "obs", "partition"} <= subpackages
+
+
 def test_constructors_and_solvers_default_to_cuda(monkeypatch):
     """Without a GPU, every entry point called without device= raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_problem = scenarios.iot(device="cpu")
     arrays = cpu_problem.to_numpy()
+    state = engine.engine_solve(engine.stack_single(cpu_problem), m_max=1, t_phi=1, alpha=0.5, tol=1e-3,
+                                patience=1, keep_state=True, device="cpu")["state"]
     for call in (
         scenarios.iot,
         scenarios.mesh,
@@ -111,6 +127,14 @@ def test_constructors_and_solvers_default_to_cuda(monkeypatch):
         lambda: fleet.solve_fleet([cpu_problem], method="CongUnaware"),
         lambda: fleet.solve_sequential([cpu_problem]),
         lambda: fleet_cli.main(["--instances", "1"]),
+        lambda: structs.hop_bound_cache(cpu_problem.net),
+        lambda: chaos.refresh_apsp0([cpu_problem], None),
+        lambda: chaos.repair_fleet([cpu_problem], state, [np.ones(17, np.float32)]),
+        lambda: control_cli.run_control([cpu_problem], epochs=4),
+        lambda: control_cli.main(["--instances", "1", "--epochs", "4"]),
+        lambda: apps_from_profiles([profile_arch(reduced_config("qwen1.5-0.5b"))], [0], [1], [1.0]),
+        lambda: sweep_zoo(archs=("qwen1.5-0.5b",), topologies=("iot",)),
+        lambda: pareto_cli.main(["--archs", "qwen1.5-0.5b", "--topologies", "iot"]),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
