@@ -338,3 +338,29 @@ def check_fronts(report: dict) -> None:
                 f"check_fronts: cell {name} front {cell['front']} does not "
                 f"match the re-verified non-dominated set {expect}"
             )
+
+
+def fronts_agree(ref: dict, got: dict, rtol: float) -> list:
+    """Whether two reports' fronts of one cell agree up to near-ties: every
+    index on one front only needs a partner on the other front whose
+    latency, compute and egress agree with its own within `rtol` in both
+    reports. Such points tie in exact arithmetic (e.g. cut sets that put
+    every partition on one host), so rounding may order them either way.
+    Returns those indices; raises ValueError if one lacks a partner."""
+    fa, fb = set(ref["front"]), set(got["front"])
+
+    def objectives(cell, i):
+        return np.array([cell["points"][i][k] for k in ("latency", "compute", "egress")])
+
+    swapped = sorted(fa ^ fb)
+    for i in swapped:
+        other = fb if i in fa else fa
+        if not any(
+            all(np.allclose(objectives(c, i), objectives(c, j), rtol=rtol, atol=0) for c in (ref, got))
+            for j in other
+        ):
+            raise ValueError(
+                f"fronts_agree: {ref['arch']}/{ref['topology']}/load={ref['load']}: front "
+                f"{got['front']} vs {ref['front']}, index {i} has no near-tie partner"
+            )
+    return swapped

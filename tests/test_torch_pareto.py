@@ -9,7 +9,7 @@ and [45, 46, 47] all put every partition on one host), and ulp-level
 differences of the port's arithmetic can order such points. An index on
 one front only must have a partner on the other front whose latency,
 compute and egress agree with its own within rtol 1e-5, the J tolerance,
-in both reports."""
+in both reports (`repro_torch.partition.pareto.fronts_agree`)."""
 import dataclasses
 import json
 
@@ -30,23 +30,6 @@ from tests._optional_deps import given, settings, st
 
 SWEEP_KW = dict(archs=("qwen1.5-0.5b", "mamba2-370m"), topologies=("iot",), max_per_p=2, m_max=2, t_phi=2)
 OBJECTIVES = ("latency", "compute", "egress")
-
-
-def fronts_agree(ref: dict, got: dict, rtol: float) -> list:
-    """Indices on one front only, each checked to have a near-tie partner on
-    the other front (module doc); returns them."""
-    fa, fb = set(ref["front"]), set(got["front"])
-
-    def obj(cell, i):
-        return np.array([cell["points"][i][k] for k in OBJECTIVES])
-
-    swapped = sorted(fa ^ fb)
-    for i in swapped:
-        other = fb if i in fa else fa
-        partners = [j for j in other
-                    if all(np.allclose(obj(c, i), obj(c, j), rtol=rtol, atol=0) for c in (ref, got))]
-        assert partners, (ref["arch"], i, ref["front"], got["front"])
-    return swapped
 
 
 def test_zoo_is_the_reference_zoo():
@@ -138,10 +121,23 @@ def test_sweep_zoo_matches_jax(sweeps):
             assert {k: p[k] for k in ("splits", "parts", "eta")} == {k: q[k] for k in ("splits", "parts", "eta")}
             np.testing.assert_allclose([q[k] for k in ("J",) + OBJECTIVES], [p[k] for k in ("J",) + OBJECTIVES],
                                        rtol=1e-5)
-        swapped[a["arch"]] = fronts_agree(a, b, 1e-5)
+        swapped[a["arch"]] = tpar.fronts_agree(a, b, 1e-5)
         assert b["front_size"] == len(b["front"]) and b["n_dominated"] == b["n_points"] - b["front_size"]
     tpar.check_fronts(got)
     assert swapped["qwen1.5-0.5b"] == []
+
+
+def test_fronts_agree_accepts_near_ties_only():
+    """A swap between points tied to rtol is accepted and returned; one whose
+    partner differs beyond rtol in either report raises."""
+    pts = [{"latency": 1.0, "compute": 0.5, "egress": 2.0}, {"latency": 1.0 + 1e-7, "compute": 0.5, "egress": 2.0},
+           {"latency": 3.0, "compute": 0.1, "egress": 0.0}]
+    ref = {"arch": "a", "topology": "iot", "load": 1.0, "front": [0, 2], "points": pts}
+    assert tpar.fronts_agree(ref, {**ref, "front": [1, 2]}, 1e-5) == [0, 1]
+    assert tpar.fronts_agree(ref, ref, 1e-5) == []
+    far = [pts[0], {**pts[1], "egress": 2.1}, pts[2]]
+    with pytest.raises(ValueError, match="index 0 has no near-tie partner"):
+        tpar.fronts_agree(ref, {**ref, "front": [1, 2], "points": far}, 1e-5)
 
 
 def test_check_fronts_errors_match_jax(sweeps):
