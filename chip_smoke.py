@@ -7,7 +7,7 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` or an argmin kernel spills), then runs nine phases,
+`neumann_cols_kernel` or an argmin kernel spills), then runs ten phases,
 each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
@@ -20,7 +20,10 @@ each printing JSON lines:
      kernels at phase 9's first Pareto chunk (V = 32, 327 lanes) and
      min-plus at the warm hop-bound closure's masked product (B = 1,
      V = 256, operands almost all BIG); flash
-     attention 1e-4 in fp32 and 2e-2 in bf16, fully masked rows exactly 0),
+     attention 1e-4 in fp32 and 2e-2 in bf16, fully masked rows exactly 0,
+     also at phase 10's shapes: hymba's GQA 25:5 with its 1024 window at
+     S = 2048, the seamless encoder, cross attention at Sq = 16 and 1
+     against 1024 frames, qwen2-moe's D = 128),
      with CUDA-event times, the plain version's time, a PyTorch-call
      yardstick (for Neumann the dense LU solve), and the card's bound;
      each flash row names its variant (wgmma or cuda_core), each argmin
@@ -47,7 +50,8 @@ each printing JSON lines:
      at block_apps 1 and 0, and eight checks: J finite, best of its history
      and conserving traffic; block_apps=0 and trace=False bitwise the same;
      two chunks and B = 1 solves of lanes 0-3 at rtol 1e-5 (on at most two
-     lanes whose hosts differ on a near-tie, 1e-3); the four methods finite on lanes 0-7 with
+     lanes whose hosts differ on a near-tie, 1e-3); `profile_round_phases`
+     over the fleet finite, its shares summing to 1; the four methods finite on lanes 0-7 with
      hosts only on real nodes; `repair_placement` off two dead nodes (on
      lane 0, or the first lane that hosts a partition on a removable
      non-endpoint node), and the identity with every node live; every
@@ -69,13 +73,32 @@ each printing JSON lines:
      and mesh, 1,176 candidates in chunks under the 2 GB cap), its fronts
      checked (`check_fronts`, every J finite), and a two-arch sub-sweep on
      the card against the CPU (J at rtol 1e-5, fronts equal up to
-     near-ties: points whose objectives agree to 1e-5 may swap).
+     near-ties: points whose objectives agree to 1e-5 may swap);
+ 10. every model family at full width (bf16 parameters, random weights):
+     `serve()` at phase 5's traffic on mamba2-370m, hymba-1.5b and
+     qwen2-moe-a2.7b at full depth; mixtral-8x22b (4 of 56 layers) prefill
+     of 8 x 1024 tokens and 8 decode steps; seamless-m4t-medium (8
+     utterances of 1024 frames, a 16-token decoder prefix, 64 decode
+     steps, and the executor's encoder / decoder split, bitwise the model);
+     internvl2-76b (4 of 80 layers) on 1024 patch features;
+     command-r-plus-104b (4 of 64 layers) quantized to int8 against its
+     dequantized weights. Each with prefill and decode-step times, a
+     profile of the device time by kernel family and model region (MoE
+     dispatch, experts, combine; the SSD dual form) with the idle share,
+     prefill-then-decode against the full forward (fp32; bf16 within 4
+     bf16 ulps, 6.5 and 6 for mamba2 and hymba, made twice and equal
+     bitwise; MoE at the no-drop capacity: a bf16 token routed to other
+     experts must be a router near-tie, or follow from one, and is
+     reported and left out),
+     and the card against the CPU at 2 layers (rtol 1e-3, the same experts
+     for every MoE token); the served families' and mixtral's 8 x 1024
+     prefills repeat bitwise.
 
-Kernel launches are counted only while the main paths run (phases 2-9),
+Kernel launches are counted only while the main paths run (phases 2-10),
 by kernel and by variant; every kernel must have launched there, every
 phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
-of more than one CTA, and every phase-5 prefill flash launch the wgmma
-variant. Any failed
+of more than one CTA, and every phase-5 and phase-10 bf16 flash launch
+the wgmma variant. Any failed
 check raises, so the script exits non-zero. It exits non-zero without a GPU or without the
 repository's `src/repro_torch` beside it. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -574,19 +597,37 @@ def argmin_variant(nb, m, kk, nn) -> str:
     return mp_ops._argmin_variant(splits, wide)
 
 
-def flash_live_entries(sq, sk, causal, window, q_offset) -> int:
-    """Unmasked (query, key) pairs of one (batch, head): the work the
-    kernel must do for these inputs."""
+def flash_live_mask(sq, sk, causal, window, q_offset, device="cpu"):
+    """[Sq, Sk] bool, True where query i sees key j: the (query, key) pairs
+    of one (batch, head) the kernel must do for these inputs."""
     import torch
 
-    qp = q_offset + torch.arange(sq)[:, None]
-    kp = torch.arange(sk)[None, :]
-    mask = torch.ones(sq, sk, dtype=torch.bool)
+    qp = q_offset + torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
     if causal:
         mask &= kp <= qp
     if window is not None:
         mask &= kp > qp - window
-    return int(mask.sum())
+    return mask
+
+
+def sdpa_call(q, k, v, causal, window, q_offset):
+    """One `scaled_dot_product_attention` call computing what the flash
+    kernel computes on these inputs, or None where none does (a query that
+    sees no key: the kernel writes 0, SDPA NaN). Plain causal attention
+    takes `is_causal`; a window or an offset a boolean band mask, built
+    here, before any timing."""
+    import torch.nn.functional as F
+
+    sq, sk = q.shape[2], k.shape[2]
+    gqa = k.shape[1] != q.shape[1]
+    if window is None and q_offset == 0 and (sq == sk or not causal):
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=gqa)
+    band = flash_live_mask(sq, sk, causal, window, q_offset, device=q.device)
+    if not bool(band.any(dim=1).all()):
+        return None
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=gqa)
 
 
 def phase1_flash():
@@ -595,9 +636,10 @@ def phase1_flash():
     rows that see no key), at the serve prefill shape, the other head shapes
     of the zoo, and the edge cases in both dtypes. Each row names the kernel
     variant that ran; at the serve prefill shape the CUDA-core kernel is also
-    timed on the same bf16 inputs (`cuda_core_ms`)."""
+    timed on the same bf16 inputs (`cuda_core_ms`). SDPA is timed, and held
+    to the plain version, wherever one call computes the same function
+    (`sdpa_call`: with a band mask for a window or an offset)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_chunked, flash_attention
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -608,7 +650,16 @@ def phase1_flash():
         ("serve prefill", 8, 16, 16, 1024, 1024, 64, True, None, 0, bf16, True),
         ("GQA 8:1 D=128", 1, 64, 8, 1024, 1024, 128, True, None, 0, bf16, True),
         ("MQA D=256", 1, 8, 1, 2048, 2048, 256, True, None, 0, bf16, True),
+        # Phase 10's shapes: hymba's GQA 25:5 with its 1024 window, the
+        # seamless encoder (bidirectional) and its cross attention in prefill
+        # (16 decoder tokens) and decode (one) over 1024 frames, qwen2-moe.
+        ("hymba window 1024", 8, 25, 5, 2048, 2048, 64, True, 1024, 0, bf16, True),
+        ("seamless encoder", 8, 16, 16, 1024, 1024, 64, False, None, 0, bf16, True),
+        ("seamless cross Sq=16", 8, 16, 16, 16, 1024, 64, False, None, 0, bf16, True),
+        ("seamless cross Sq=1", 8, 16, 16, 1, 1024, 64, False, None, 0, bf16, True),
+        ("qwen2-moe D=128", 8, 16, 16, 1024, 1024, 128, True, None, 0, bf16, True),
     ]
+    main_path = list(cases)
     for dt in (fp32, bf16):
         cases += [
             ("GQA 4:1 window 128 q_offset", 1, 8, 2, 256, 512, 64, True, 128, 256, dt, False),
@@ -636,11 +687,15 @@ def phase1_flash():
             raise AssertionError(f"flash {tag} {dt}: max abs error {err} > {tol}")
         if q_offset < -sq and not bool((got == 0).all()):
             raise AssertionError(f"flash {tag} {dt}: fully masked rows are not exactly 0")
-        live = flash_live_entries(sq, sk, causal, window, q_offset) * b * h
+        live = int(flash_live_mask(sq, sk, causal, window, q_offset).sum()) * b * h
         esize = q.element_size()
         bytes_ = (2 * q.numel() + k.numel() + v.numel()) * esize  # q, k, v read once, o written once
         t_b, t_o = bytes_ / HBM_BYTES_PER_S, 4 * d * live / (BF16_OPS_PER_S if dt == bf16 else FP32_OPS_PER_S)
-        same_fn = window is None and q_offset == 0 and sq == sk
+        library = sdpa_call(q, k, v, causal, window, q_offset)
+        if library is not None:
+            lib_err = (library().float() - want.float()).abs().max().item()
+            if not lib_err <= tol:
+                raise AssertionError(f"flash {tag} {dt}: SDPA computes another function ({lib_err})")
         reps = 10 if sq >= 1024 else 20
         row = {
             "kernel": "flash_attention", "shape": f"{tag}: B={b} H={h} Kv={kv} Sq={sq} Sk={sk} D={d} "
@@ -649,8 +704,7 @@ def phase1_flash():
             "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), reps),
             "plain_ms": cuda_ms(lambda: attention_chunked(q, k, v, **kw), 2, 1),
             "bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=kv != h), reps) if same_fn else None,
+            "library_ms": None if library is None else cuda_ms(library, reps),
         }
         if tag == "serve prefill":  # the CUDA-core kernel on the same inputs, for comparison
             variant = fa_ops._variant
@@ -660,13 +714,15 @@ def phase1_flash():
             finally:
                 fa_ops._variant = variant
         rows.append(row)
-        del q, k, v, got, want
+        del q, k, v, got, want, library
     torch.cuda.empty_cache()
     emit({"phase": 1, "name": "flash_vs_plain", "rows": rows})
     head = rows[0]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     return {"flash_attention": {
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "max_abs_err": max(r["max_abs_err"] for r in rows), **{k: head[k] for k in timed},
+        # the model shapes (phase 5's, the zoo's head shapes, phase 10's), for the kernels line
+        "shapes": [{k: r[k] for k in timed} for r in rows[:len(main_path)]],
     }}
 
 
@@ -927,6 +983,7 @@ def phase7(core, counter, problems):
     import torch
     from repro_torch import fleet
     from repro_torch.core import placement
+    from repro_torch.obs import profile_round_phases
 
     kw = dict(method="ALT", m_max=4, t_phi=5, round_to=8)
     torch.cuda.synchronize()
@@ -1091,6 +1148,11 @@ def phase7(core, counter, problems):
                     "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",)},
         split["round_eval_ms"] + split["placement_ms"] + split["forwarding_ms"],
     )
+    # The round-phase profiler over the same fleet (best of 3, CUDA events).
+    phases = profile_round_phases(problems, t_phi=kw["t_phi"], round_to=kw["round_to"])
+    shares = sum(phases[f"{n}_share"] for n in ("placement", "forwarding", "round_eval"))
+    if not all(math.isfinite(x) for x in phases.values()) or abs(shares - 1) > 1e-3:
+        raise AssertionError(f"phase 7: profile_round_phases {phases}")
     emit({
         "phase": 7, "name": "fleet", "B": b, "V": v, "A": a, "K": k, **kw,
         "families": {f: sum(1 for i in range(FLEET_B) if i % 4 == j) for j, f in enumerate(fleet.FAMILIES)},
@@ -1101,7 +1163,7 @@ def phase7(core, counter, problems):
         "J_mean": float(J.mean()), "conservation_rel": cons, "mean_churn": res.trace.mean_churn(),
         "iters": np.bincount(res.iters, minlength=5).tolist(), "launches": launches,
         "variants": {n: variants[n] for n in ("neumann_cols", "neumann_rows", "minplus_argmin")},
-        "split": split, "profile": prof, "placement_ms_block_apps_1": sweep_ms[1], "placement_ms_block_apps_0": sweep_ms[0],
+        "split": split, "profile": prof, "round_phases": phases, "placement_ms_block_apps_1": sweep_ms[1], "placement_ms_block_apps_0": sweep_ms[0],
         "placement_ops_block_apps_1": sweep_ops[1], "placement_ops_block_apps_0": sweep_ops[0],
         "kernels_vs_plain": vs_plain,
         "chunk_half_vs_single": chunk_vs, "sequential_lanes_0_3_vs_fleet": seq_vs, "methods_lanes_0_7": methods,
@@ -1397,16 +1459,22 @@ def phase9(counter):
     })
 
 
-def profile(fn, families, wall_ms=None) -> dict:
+# Names of the obs spans (torch.profiler ranges while tracing is on).
+SPAN_PREFIXES = ("serve.", "moe.", "ssm.", "round.", "control.")
+
+
+def profile(fn, families, wall_ms=None, regions=()) -> dict:
     """Device time of `fn()` under torch.profiler by kernel family
     (`families`: name -> substrings of kernel names; the rest is "other"),
     the ten largest kernels, the count of device operations (kernels,
     copies, fills), and, given `wall_ms` (the same work timed
     without the profiler), the device's idle share. Only device-side kernel
     events are summed: CPU operator ranges also carry their children's
-    device time, and the device-side ranges of `obs` spans ("serve.*")
-    cover idle gaps. "not measured" if the profiler records no device
-    time."""
+    device time, and the device-side ranges of `obs` spans cover idle
+    gaps. `regions`: obs span names whose ranges' device time (every
+    kernel launched inside them, so overlapping the families) is reported
+    apart; the spans record only while tracing is on. "not measured" if
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1415,9 +1483,12 @@ def profile(fn, families, wall_ms=None) -> dict:
         fn()
         torch.cuda.synchronize()
     fam = {k: 0.0 for k in families} | {"other": 0.0}
+    region_ms = {k: 0.0 for k in regions}
     top = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("serve."):
+        if e.key in region_ms and e.device_type == torch.autograd.DeviceType.CPU:
+            region_ms[e.key] += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith(SPAN_PREFIXES):
             continue
         dev_ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
         if dev_ms <= 0:
@@ -1434,6 +1505,8 @@ def profile(fn, families, wall_ms=None) -> dict:
         "device_busy_ms": busy, "device_ops": ops, "device_ms_by_family": fam,
         "top_kernels": [{"ms": t, "name": n, "calls": c} for t, n, c in top[:10]],
     }
+    if regions:
+        out["regions_device_ms"] = region_ms
     if wall_ms is not None:
         out.update(wall_ms=wall_ms, idle_share=max(0.0, 1.0 - busy / wall_ms))
     return out
@@ -1591,6 +1664,560 @@ def phase6(counter, cfg, params):
     })
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: every model family the port serves, at full width, bf16
+# parameters, random weights from seed 0.
+# ---------------------------------------------------------------------------
+FAMILY_KERNELS = {**SERVE_FAMILIES, "elementwise": ("elementwise_kernel",)}
+FAMILY_REGIONS = ("moe.dispatch", "moe.experts", "moe.combine", "ssm.ssd")
+SERVED = ("mamba2-370m", "hymba-1.5b", "qwen2-moe-a2.7b")  # phase 5's traffic through serve()
+CHECK_LAYERS, CHECK_SEQ = 2, 128  # card vs CPU: first layers at full width, fp32 compute
+
+
+def bf16_ulps(top: float, n: int = 4) -> float:
+    """n bf16 ulps at magnitude `top` (8 significant bits)."""
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def by_position(calls: list, n_layers: int, positions: list) -> dict:
+    """{(layer, sequence, position): (experts, near-tie)} from one run's
+    `record_routes()`; `positions[i]` lists the positions of the i-th run
+    of the n_layers dispatches (a forward or prefill, then one decode step
+    each). Empty where the model has no MoE layer."""
+    out = {}
+    for i, pos in enumerate(positions if calls else ()):
+        for layer in range(n_layers):
+            r = calls[i * n_layers + layer]
+            experts = r.experts.view(-1, len(pos), r.experts.shape[-1])
+            tie = r.near_tie().view(-1, len(pos))
+            for b in range(experts.shape[0]):
+                for j, p in enumerate(pos):
+                    out[(layer, b, p)] = (tuple(experts[b, j].tolist()), bool(tie[b, j]))
+    return out
+
+
+def route_flips(a: dict, b: dict, n_layers: int, exact: bool, what: str):
+    """The (layer, sequence, position) of every token the two runs sent to
+    other experts, and a predicate for the (sequence, position) such a
+    flip reaches: the token itself at the last layer, it and every later
+    position of its sequence at an earlier one. Raises on a flip the
+    rounding cannot explain: any flip where `exact` (float32 compute), else
+    one that is a near-tie in neither run (`Route.near_tie`) and that no
+    explained flip at an earlier layer, an earlier or the same position of
+    its sequence, reaches."""
+    flips = sorted(k for k in a.keys() & b.keys() if a[k][0] != b[k][0])  # by layer first
+    for i, (layer, s, p) in enumerate(flips):
+        carried = any(l0 < layer and s0 == s and p0 <= p for l0, s0, p0 in flips[:i])
+        if exact or not (a[(layer, s, p)][1] or b[(layer, s, p)][1] or carried):
+            raise AssertionError(f"phase 10 {what}: layer {layer}, sequence {s}, position {p} routed to "
+                                 f"{a[(layer, s, p)]} and {b[(layer, s, p)]}, not a near-tie ({flips})")
+
+    def reached(seq, pos):
+        return any(s == seq and (p == pos or (layer < n_layers - 1 and p <= pos)) for layer, s, p in flips)
+
+    return flips, reached
+
+
+def tree_to(module, device) -> dict:
+    """A ParamTree's tensors copied to `device`, as the nested dict
+    ParamTree takes."""
+    from torch import nn
+
+    out = {n: p.detach().to(device) for n, p in module.named_parameters(recurse=False)}
+    for n, m in module.named_children():
+        out[n] = [tree_to(x, device) for x in m] if isinstance(m, nn.ModuleList) else tree_to(m, device)
+    return out
+
+
+def family_batch(cfg, rng, b: int, s: int, enc_len: int, device="cuda") -> dict:
+    """Random inputs in the model's batch format: token ids, patch
+    features a position, or frames plus decoder tokens."""
+    import torch
+
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (b, s)).astype("int32")).to(device)
+    if cfg.family == "encdec":
+        feats = torch.from_numpy(rng.randn(b, enc_len, cfg.frontend_dim).astype("float32")).to(device)
+        return {"feats": feats, "dec_tokens": toks}
+    if cfg.frontend != "none":
+        return {"feats": torch.from_numpy(rng.randn(b, s, cfg.frontend_dim).astype("float32")).to(device)}
+    return {"tokens": toks}
+
+
+def prefix(batch: dict, n: int) -> dict:
+    if "dec_tokens" in batch:
+        return {**batch, "dec_tokens": batch["dec_tokens"][:, :n]}
+    return {k: v[:, :n] for k, v in batch.items()}
+
+
+# decode_vs_forward's bf16 limit, in bf16 ulps of the largest logit: phase
+# 5's 4, but more for the two deepest SSM stacks, whose JAX reference itself
+# reads more than 4 on the same check at full width and depth
+# (REFERENCE_BF16_ULPS, scripts/reference_bf16_noise.py on the CPU; 2.5
+# for qwen1.5-0.5b). Each limit lies above every reading of the reference
+# and of the port (mamba2 4.0, hymba 4.98, bitwise repeatable on the H100)
+# and, for mamba2, below the 6.875 that scripts/bf16_gate_control.py reads
+# with the SSM state cached in bf16 (hymba's control reads inside its
+# noise: PERF.md section 6).
+BF16_ULPS = {"mamba2-370m": 6.5, "hymba-1.5b": 6.0}
+REFERENCE_BF16_ULPS = {"mamba2-370m": 6.25, "hymba-1.5b": 4.453125}
+
+
+def _prefill_decode_gap(cfg, params, batch) -> dict:
+    """Prefill of 64 tokens then 7 decode steps against the full forward of
+    72 (B=2, as scripts/reference_bf16_noise.py reads the reference): the
+    largest difference over the positions no router flip reaches, the flips
+    (layer, sequence, position) and the (sequence, position) pairs they
+    reach, left out. Flips are held to `route_flips` (none in float32
+    compute), and at least half of the positions both runs route (0-70)
+    must be reached by none, as the CPU tests require of a forward.
+    `_logits` keeps every logit computed, for the repeat check."""
+    import torch
+    from repro_torch.models import decode_step, logits_fn, prefill
+    from repro_torch.models.routes import record_routes
+
+    toks = batch["dec_tokens"] if cfg.family == "encdec" else batch["tokens"]
+    n = cfg.n_dec_layers if cfg.family == "encdec" else cfg.n_layers
+    with torch.inference_mode(), record_routes() as fwd:
+        full = logits_fn(cfg, params, batch).float()
+    with torch.inference_mode(), record_routes() as inc:
+        caches, last = prefill(cfg, params, prefix(batch, 64), 128)
+        pairs = [(63, last[:, 0].float())]
+        for pos in range(64, 71):
+            lg, caches = decode_step(cfg, params, caches, toks[:, pos:pos + 1], pos)
+            pairs.append((pos, lg[:, 0].float()))
+    flips, reached = route_flips(by_position(fwd, n, [range(72)]),
+                                 by_position(inc, n, [range(64)] + [[p] for p in range(64, 71)]), n,
+                                 exact=cfg.compute_dtype == "float32", what=f"{cfg.name} prefill-then-decode")
+    compared, left_out = [], []
+    for pos, lg in pairs:
+        for b in range(2):
+            (left_out if reached(b, pos) else compared).append((b, pos, lg[b], full[b, pos]))
+    unreached = sum(not reached(b, p) for b in range(2) for p in range(71)) / (2 * 71)
+    if not compared or unreached < 0.5:
+        raise AssertionError(f"phase 10 {cfg.name}: router near-ties reach {1 - unreached:.0%} of the "
+                             f"positions, {len(left_out)} of {len(pairs) * 2} logits: {flips}")
+    top = full.abs().max().item()
+    err = max((x - y).abs().max().item() for _, _, x, y in compared)
+    return {"layers": n, "max_abs": err, "max_logit": top, "ulps": err / bf16_ulps(top, 1),
+            "route_flips": flips, "left_out": [(b, p) for b, p, _, _ in left_out],
+            "compared": len(compared), "positions_unreached": unreached, "_compared": compared,
+            "_logits": [full] + [lg for _, lg in pairs]}
+
+
+def decode_vs_forward(cfg, params) -> dict:
+    """Prefill-then-decode against the full forward, as phase 5: in fp32
+    compute (on the bf16 weights) within test_models.py's rtol 2e-3, atol
+    1e-2; in the config's bf16 compute within 4 bf16 ulps of the largest
+    logit (BF16_ULPS for the deep SSM stacks). The bf16 run is made twice
+    and must repeat bitwise. MoE at JAX's no-drop capacity (prefill and
+    forward would drop other tokens); a token whose experts differ between
+    the forward and prefill/decode (a bf16 router near-tie), and what it
+    reaches, is reported and left out."""
+    import numpy as np
+    import torch
+
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts) / cfg.top_k + 1.0)
+    batch = family_batch(cfg, np.random.RandomState(1), 2, 72, 256)
+    out = {}
+    for compute in ("float32", "bfloat16"):
+        res = _prefill_decode_gap(dataclasses.replace(cfg, compute_dtype=compute), params, batch)
+        limit = BF16_ULPS.get(cfg.name, 4.0)
+        tol = dict(rtol=2e-3, atol=1e-2) if compute == "float32" else dict(
+            rtol=0.0, atol=bf16_ulps(res["max_logit"], limit))
+        for _, _, x, y in res.pop("_compared"):
+            torch.testing.assert_close(x, y, **tol)
+        logits = res.pop("_logits")
+        out[compute] = {**res, **tol}
+        if compute == "bfloat16":
+            again = _prefill_decode_gap(dataclasses.replace(cfg, compute_dtype=compute), params, batch)
+            if not all(torch.equal(x, y) for x, y in zip(logits, again["_logits"], strict=True)):
+                raise AssertionError(f"phase 10 {cfg.name}: the bf16 prefill-then-decode run does not repeat "
+                                     f"bitwise ({res['ulps']} then {again['ulps']} ulps)")
+            out[compute].update(limit_ulps=limit, repeat_bitwise=True)
+            if cfg.name in REFERENCE_BF16_ULPS:
+                out[compute]["reference_ulps"] = REFERENCE_BF16_ULPS[cfg.name]
+    return out
+
+
+def card_vs_cpu(cfg, params) -> dict:
+    """The card against the CPU on the same weights: the first CHECK_LAYERS
+    layers (of the encoder and the decoder) at full width, B=1, S=CHECK_SEQ,
+    fp32 compute, rtol 1e-3 / atol 1e-4 as phase 5, at every position: an
+    MoE token the two devices send to other experts fails it."""
+    import numpy as np
+    import torch
+    from repro_torch.models import logits_fn
+    from repro_torch.models.model import ParamTree
+    from repro_torch.models.routes import record_routes
+
+    c = dataclasses.replace(cfg, n_layers=min(CHECK_LAYERS, cfg.n_layers),
+                            n_dec_layers=min(CHECK_LAYERS, cfg.n_dec_layers), compute_dtype="float32")
+    tree = {k: getattr(params, k) for k in ("embed", "final_norm", "enc_final_norm") if hasattr(params, k)}
+    tree["blocks"] = list(params.blocks)[:c.n_layers]
+    if c.family == "encdec":
+        tree["dec_blocks"] = list(params.dec_blocks)[:c.n_dec_layers]
+    gpu_p = ParamTree(tree)
+    cpu_p = ParamTree(tree_to(gpu_p, "cpu"))
+    batch = family_batch(c, np.random.RandomState(2), 1, CHECK_SEQ, CHECK_SEQ, device="cpu")
+    with torch.inference_mode():
+        with record_routes() as on_gpu:
+            gpu = logits_fn(c, gpu_p, {k: v.cuda() for k, v in batch.items()}).cpu()
+        with record_routes() as on_cpu:
+            cpu = logits_fn(c, cpu_p, batch)
+    n = c.n_dec_layers if c.family == "encdec" else c.n_layers
+    route_flips(by_position(on_gpu, n, [range(CHECK_SEQ)]), by_position(on_cpu, n, [range(CHECK_SEQ)]), n,
+                exact=True, what=f"{cfg.name} card vs CPU")
+    torch.testing.assert_close(gpu, cpu, rtol=1e-3, atol=1e-4)
+    rel = ((gpu - cpu).abs() / cpu.abs().clamp(min=1e-3)).max().item()
+    del cpu_p
+    return {"layers": n, "seq": CHECK_SEQ, "max_rel": rel, "moe_dispatches_same_experts": len(on_gpu)}
+
+
+def timed_profiles(cfg, params, batch, max_seq: int, pos: int, step_tok) -> dict:
+    """Prefill and one decode step by CUDA events, then each under
+    torch.profiler: device time by kernel family and by model region, and
+    the idle share."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.obs import trace as obs_trace
+
+    with torch.inference_mode():
+        caches, _ = prefill(cfg, params, batch, max_seq)
+        prefill_ms = cuda_ms(lambda: prefill(cfg, params, batch, max_seq), 3, 1)
+        decode_ms = cuda_ms(lambda: decode_step(cfg, params, caches, step_tok, pos), 10, 2)
+        obs_trace.configure(enabled=True)
+        try:
+            prof_prefill = profile(lambda: prefill(cfg, params, batch, max_seq), FAMILY_KERNELS, prefill_ms,
+                                   FAMILY_REGIONS)
+            prof_decode = profile(lambda: decode_step(cfg, params, caches, step_tok, pos), FAMILY_KERNELS,
+                                  decode_ms, FAMILY_REGIONS)
+        finally:
+            obs_trace.configure(enabled=False)
+            obs_trace.reset()
+        del caches
+    return {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms, "profile_prefill": prof_prefill,
+            "profile_decode_step": prof_decode}
+
+
+def cache_tensors(caches) -> list:
+    """Every tensor of a list of per-layer cache dicts, in a fixed order."""
+    if isinstance(caches, dict):
+        return [t for k in sorted(caches) for t in cache_tensors(caches[k])]
+    if isinstance(caches, list):
+        return [t for c in caches for t in cache_tensors(c)]
+    return [caches]
+
+
+def bitwise_prefill_repeat(cfg, params, batch, max_seq) -> bool:
+    """The same prefill twice: logits and every cache tensor bitwise equal
+    (the MoE combine has no atomics, and no kernel of any family does)."""
+    import torch
+    from repro_torch.models import prefill
+
+    with torch.inference_mode():
+        c1, l1 = prefill(cfg, params, batch, max_seq)
+        c2, l2 = prefill(cfg, params, batch, max_seq)
+    same = torch.equal(l1, l2) and all(
+        torch.equal(a, b) for a, b in zip(cache_tensors(c1), cache_tensors(c2), strict=True))
+    if not same:
+        raise AssertionError(f"phase 10 {cfg.name}: a repeated prefill is not bitwise equal")
+    return same
+
+
+def wgmma_only(counter, cfg, what: str) -> dict:
+    """Every bf16 flash launch of the last counted run on the tensor cores."""
+    by = counter.last_variants["flash_attention"]
+    if set(by) - {"wgmma"}:
+        raise AssertionError(f"phase 10 {cfg.name}: {what} flash variants {by}")
+    return by
+
+
+def free_device() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase10_served(counter, arch: str) -> None:
+    """mamba2-370m, hymba-1.5b, qwen2-moe-a2.7b at full depth: serve() at
+    phase 5's traffic, the timings and profiles, and the checks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import init_params
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs import trace as obs_trace
+
+    cfg = serve_config(get_config(arch))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    requests, slots, prompt_len, max_new, max_seq = 16, 8, 1024, 64, 2048
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, (requests, prompt_len)).astype(np.int32)
+
+    def run(n_req, new):
+        return serve(cfg, params, prompts[:n_req], batch_slots=slots, max_new=new, max_seq=max_seq,
+                     registry=MetricsRegistry())
+
+    run(slots, 2)  # warm-up
+    obs_trace.configure(enabled=True)
+    obs_trace.reset()
+    t0 = time.perf_counter()
+    tokens, summary = counter.run(lambda: run(requests, max_new))
+    wall = time.perf_counter() - t0
+    n_prefills = sum(1 for e in obs_trace.TRACER.events() if e.name == "serve.prefill")
+    obs_trace.configure(enabled=False)
+    obs_trace.reset()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counter.last["flash_attention"]
+    if (summary["requests"], summary["generated_tokens"], summary["decode_steps"]) != (16, 1024, 128):
+        raise AssertionError(f"phase 10 {arch}: summary {summary}")
+    want_flash = cfg.n_layers * n_prefills if cfg.attends else 0
+    if launches != want_flash or n_prefills != 2:
+        raise AssertionError(f"phase 10 {arch}: {launches} flash launches, {n_prefills} prefills")
+    variants = wgmma_only(counter, cfg, "serve")
+    if not all(len(t) == max_new and all(0 <= x < cfg.vocab for x in t) for t in tokens):
+        raise AssertionError(f"phase 10 {arch}: malformed generated tokens")
+
+    batch = {"tokens": torch.from_numpy(prompts[:slots]).cuda()}
+    step_tok = torch.zeros(slots, 1, dtype=torch.int32, device="cuda")
+    line = {
+        "phase": 10, "arch": arch, "family": cfg.family, "params": n_params, "layers": cfg.n_layers,
+        "reduced": [], "requests": requests, "slots": slots, "prompt_len": prompt_len, "max_new": max_new,
+        "max_seq": max_seq, "serve": {k: v for k, v in summary.items() if k != "metrics"}, "serve_wall_s": wall,
+        "prefills": n_prefills, "flash_launches": launches, "flash_variants": variants, "peak_gb": peak / 1e9,
+        **timed_profiles(cfg, params, batch, max_seq, prompt_len, step_tok),
+    }
+    line["prefill_repeat_bitwise"] = bitwise_prefill_repeat(cfg, params, batch, max_seq)
+    line["prefill_decode_vs_forward"] = decode_vs_forward(cfg, params)
+    line["gpu_vs_cpu"] = card_vs_cpu(cfg, params)
+    emit(line)
+    del params
+    free_device()
+
+
+def phase10_mixtral(counter) -> None:
+    """mixtral-8x22b, 4 of its 56 layers at full width: a prefill of
+    8 x 1024 tokens and 8 decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(serve_config(full), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = family_batch(cfg, np.random.RandomState(0), 8, 1024, 0)
+    with torch.inference_mode():
+        caches, logits = counter.run(lambda: prefill(cfg, params, batch, 2048))
+        variants = wgmma_only(counter, cfg, "prefill")
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        for pos in range(1024, 1032):
+            logits, caches = decode_step(cfg, params, caches, tok, pos)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("phase 10 mixtral: decode logits not finite")
+        del caches
+    step_tok = torch.zeros(8, 1, dtype=torch.int32, device="cuda")
+    line = {
+        "phase": 10, "arch": full.name, "family": cfg.family, "params": n_params, "layers": cfg.n_layers,
+        "reduced": [f"4 of {full.n_layers} layers at full width (the whole model is "
+                    f"{full.n_params() * 2 / 1e9:.0f} GB in bf16); output-projection init scales use 4 layers"],
+        "batch": 8, "prompt_len": 1024, "decode_steps": 8, "flash_variants": variants,
+        **timed_profiles(cfg, params, batch, 2048, 1024, step_tok),
+        "prefill_repeat_bitwise": bitwise_prefill_repeat(cfg, params, batch, 2048),
+        "prefill_decode_vs_forward": decode_vs_forward(cfg, params),
+        "gpu_vs_cpu": card_vs_cpu(cfg, params),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(line)
+    del params
+    free_device()
+
+
+def phase10_seamless(counter) -> None:
+    """seamless-m4t-medium at full depth: 8 utterances of 1024 random
+    80-dim frames, a 16-token decoder prefix, 64 greedy decode steps; and
+    the executor's encoder / decoder split against the monolithic logits."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import decode_step, init_params, logits_fn, prefill
+    from repro_torch.partition import run_partition, split_params
+
+    cfg = serve_config(get_config("seamless-m4t-medium"))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = family_batch(cfg, np.random.RandomState(0), 8, 16, 1024)
+    max_seq, steps = 128, 64
+
+    def utterances():
+        caches, logits = prefill(cfg, params, batch, max_seq)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out = []
+        for pos in range(16, 16 + steps):
+            logits, caches = decode_step(cfg, params, caches, tok, pos)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out.append(tok)
+        return torch.cat(out, 1)
+
+    with torch.inference_mode():
+        utterances()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generated = counter.run(utterances)
+        wall = time.perf_counter() - t0
+        n_flash = counter.last["flash_attention"]
+        variants = wgmma_only(counter, cfg, "prefill and decode")
+        # encoder self attention, decoder self and cross attention in the
+        # prefill, then cross attention in every decode step.
+        if n_flash != cfg.n_layers + 2 * cfg.n_dec_layers + steps * cfg.n_dec_layers:
+            raise AssertionError(f"phase 10 seamless: {n_flash} flash launches")
+        if generated.shape != (8, steps) or not bool(((generated >= 0) & (generated < cfg.vocab)).all()):
+            raise AssertionError("phase 10 seamless: malformed generated tokens")
+
+        def split_run():
+            p1, p2 = split_params(cfg, params, 0)
+            memory = run_partition(cfg, p1, {"feats": batch["feats"]}, part=1)
+            return memory, run_partition(cfg, p2, {"memory": memory, "dec_tokens": batch["dec_tokens"]}, part=2)
+
+        memory, split_logits = counter.run(split_run)
+        mono = logits_fn(cfg, params, batch)
+        if not torch.equal(split_logits, mono):
+            raise AssertionError("phase 10 seamless: the encoder / decoder split is not bitwise the model")
+    step_tok = torch.zeros(8, 1, dtype=torch.int32, device="cuda")
+    emit({
+        "phase": 10, "arch": cfg.name, "family": cfg.family, "params": n_params,
+        "layers": [cfg.n_layers, cfg.n_dec_layers], "reduced": [], "utterances": 8, "frames": 1024,
+        "decoder_prefix": 16, "decode_steps": steps, "wall_s": wall, "tokens_per_s": 8 * steps / wall,
+        "flash_launches": n_flash, "flash_variants": variants,
+        **timed_profiles(cfg, params, batch, max_seq, 16, step_tok),
+        "split": {"memory_bytes": memory.numel() * memory.element_size(), "bitwise_equal_monolithic": True},
+        "prefill_decode_vs_forward": decode_vs_forward(cfg, params),
+        "gpu_vs_cpu": card_vs_cpu(cfg, params),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    del params, memory
+    free_device()
+
+
+def phase10_internvl(counter) -> None:
+    """internvl2-76b, 4 of its 80 layers at full width: logits_fn on 1024
+    random 3200-dim patch features."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import init_params, logits_fn
+
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(serve_config(full), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = family_batch(cfg, np.random.RandomState(0), 1, 1024, 0)
+    with torch.inference_mode():
+        logits = counter.run(lambda: logits_fn(cfg, params, batch))
+        variants = wgmma_only(counter, cfg, "forward")
+        if logits.shape != (1, 1024, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 10 internvl: logits {tuple(logits.shape)} not finite")
+        fwd_ms = cuda_ms(lambda: logits_fn(cfg, params, batch), 3, 1)
+        prof = profile(lambda: logits_fn(cfg, params, batch), FAMILY_KERNELS, fwd_ms)
+        del logits
+    emit({
+        "phase": 10, "arch": full.name, "family": cfg.family, "frontend": cfg.frontend, "params": n_params,
+        "layers": cfg.n_layers, "reduced": [f"4 of {full.n_layers} layers at full width; output-projection "
+                                             "init scales use 4 layers"],
+        "patches": 1024, "frontend_dim": cfg.frontend_dim, "flash_variants": variants, "forward_ms": fwd_ms,
+        "profile_forward": prof, "gpu_vs_cpu": card_vs_cpu(cfg, params),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    del params
+    free_device()
+
+
+def phase10_int8(counter) -> None:
+    """command-r-plus-104b, 4 of its 64 layers at full width: quantize_params
+    (int8), then a prefill of 8 x 1024 tokens and 8 decode steps against the
+    same model with its weights dequantized to bf16: equal within one bf16
+    ulp of the largest logit (the same values reach the same kernels)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import decode_step, dequantize_params, init_params, prefill, quantize_params
+
+    full = get_config("command-r-plus-104b")
+    cfg = dataclasses.replace(serve_config(full), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda")
+    bf16_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del params
+    free_device()
+    int8_bytes = sum(p.numel() * p.element_size() for p in qparams.parameters())
+    deq = dequantize_params(qparams, torch.bfloat16)
+    batch = family_batch(cfg, np.random.RandomState(0), 8, 1024, 0)
+    logits = {}
+    with torch.inference_mode():
+        for name, p in (("int8", qparams), ("dequantized", deq)):
+            caches, lg = counter.run(lambda p=p: prefill(cfg, p, batch, 2048))
+            wgmma_only(counter, cfg, "prefill")
+            steps = [lg[:, -1].float()]
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            for pos in range(1024, 1032):
+                lg, caches = decode_step(cfg, p, caches, tok, pos)
+                steps.append(lg[:, -1].float())
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            logits[name] = torch.stack(steps)
+            del caches
+        step_tok = torch.zeros(8, 1, dtype=torch.int32, device="cuda")
+        times = {name: timed_profiles(cfg, p, batch, 2048, 1024, step_tok)
+                 for name, p in (("int8", qparams), ("dequantized", deq))}
+    top = logits["dequantized"].abs().max().item()
+    err = (logits["int8"] - logits["dequantized"]).abs().max().item()
+    if not err <= bf16_ulps(top, 1):
+        raise AssertionError(f"phase 10 int8: logits {err} off the dequantized model's (top {top})")
+    emit({
+        "phase": 10, "arch": full.name, "family": cfg.family, "int8": True, "layers": cfg.n_layers,
+        "reduced": [f"4 of {full.n_layers} layers at full width; output-projection init scales use 4 layers"],
+        "bf16_bytes": bf16_bytes, "int8_bytes": int8_bytes, "quantize_s": quant_s,
+        "quantized_leaves": sum(1 for n, _ in qparams.named_parameters() if n.endswith("__q")),
+        "batch": 8, "prompt_len": 1024, "decode_steps": 8, "max_abs_vs_dequantized": err, "max_logit": top,
+        "timings": {k: {kk: v[kk] for kk in ("prefill_ms", "decode_step_ms")} for k, v in times.items()},
+        "profile_int8": {k: times["int8"][k] for k in ("profile_prefill", "profile_decode_step")},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    del qparams, deq
+    free_device()
+
+
+def phase10(counter) -> None:
+    """Every model family the port serves, at full width (module doc)."""
+    t0 = time.perf_counter()
+    for arch in SERVED:
+        phase10_served(counter, arch)
+    phase10_mixtral(counter)
+    phase10_seamless(counter)
+    phase10_internvl(counter)
+    phase10_int8(counter)
+    emit({"phase": 10, "name": "families", "wall_s": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -1657,6 +2284,7 @@ def main() -> int:
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], e)
     phase8(core, counter, fleet_problems)
     phase9(counter)
+    phase10(counter)
 
     sources = {
         "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",
@@ -1679,6 +2307,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches, "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "shape": s["shape"],
+            **({"shapes": s["shapes"]} if "shapes" in s else {}),
             **({"variants": counter.total_variants[name]} if name in counter.total_variants else {}),
         })
     emit({"kernels": kernels})

@@ -13,6 +13,13 @@ time is kept) with the position reset to the prompt length.
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced \\
         --requests 12 --batch-slots 4 --prompt-len 32 --max-new 16 --device cpu
 
+Every executable arch runs, with the JAX CLI's frontend stripping: a
+frontend arch (internvl2-76b) is served as its token backbone. An
+encoder-decoder arch raises ValueError before its first prefill: the JAX
+CLI strips the frontend and then hands `{"tokens"}` to an encdec prefill,
+which reads `batch["dec_tokens"]` and fails with KeyError (ROADMAP.md
+section 3); the port does not invent a decoder prompt the reference lacks.
+
 Without `--device cpu` it runs on the GPU (and raises without one). The
 JSON summary carries p50/p95 end-to-end latency, p50/p95 time to first
 token and decode throughput from the obs metrics registry, plus the raw
@@ -68,7 +75,15 @@ def serve(
 
     Returns (tokens, summary): the generated tokens of each request in
     request order, and the JSON summary the CLI prints. Metrics go to
-    `registry` (default: the process-wide one)."""
+    `registry` (default: the process-wide one). Raises ValueError for an
+    encoder-decoder `cfg` (module doc)."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"serve: {cfg.name!r} is an encoder-decoder; the reference serve loop feeds "
+            "{'tokens'} to its prefill, which reads batch['dec_tokens'] and raises "
+            "KeyError: 'dec_tokens' (ROADMAP.md section 3). Run prefill/decode_step with "
+            "{'feats'|'tokens', 'dec_tokens'}, or the executor's encoder/decoder split"
+        )
     dev = solve_device(params_device(params), device)
     registry = obs_metrics.registry if registry is None else registry
     prompts = np.asarray(prompts, np.int32)

@@ -1,13 +1,16 @@
-"""The dense-decoder model substrate (`models/` of the JAX package, dense
-family): configuration, layers, the model entry points, and the bridge
-from the JAX package's parameter trees (`convert`)."""
+"""The model-zoo substrate (`models/` of the JAX package, serving part):
+configuration, layers, the Mamba-2 mixer (`ssm`), weight-only int8
+storage (`quant`), the model entry points of every executable family, and
+the bridge from the JAX package's parameter trees (`convert`)."""
 from .config import SHAPES, ModelConfig, ShapeConfig, shape_applicable  # noqa: F401
 from .model import (  # noqa: F401
     ParamTree,
     decode_step,
+    encode,
     forward,
     init_caches,
     init_params,
     logits_fn,
     prefill,
 )
+from .quant import dequantize_params, quantize_params  # noqa: F401

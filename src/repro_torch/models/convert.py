@@ -3,8 +3,11 @@
 The JAX package keeps a model's parameters as a nested dict with the
 layers stacked on axis 0 (`params["blocks"]["attn"]["wq"]` is [L, d, H, hd]).
 `params_from_jax` takes that tree with numpy leaves (`jax.tree.map(np.asarray,
-params)`) and splits the stacked leaves into one module per layer, keeping
-every shape and dtype; `params_to_numpy` is the inverse. numpy has no
+params)`) and splits the stacked leaves (`blocks`, and `dec_blocks` of an
+encoder-decoder) into one module per layer, keeping every shape and dtype;
+`params_to_numpy` is the inverse. A quantized leaf {"__q": int8, "__s"}
+crosses as it is; under the stacked subtrees its per-layer scales [L]
+become one scalar a layer, and stack back to [L]. numpy has no
 bfloat16 of its own, so a bfloat16 leaf arrives as the 2-byte dtype named
 "bfloat16" that JAX hands out (read through its raw bits) and leaves as
 float32, which holds every bfloat16 value exactly.
@@ -16,7 +19,8 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .model import ParamTree, require_dense
+from .model import ParamTree
+from .quant import STACKED
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -36,12 +40,13 @@ def _map(tree, fn):
 
 def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cuda") -> ParamTree:
     """The JAX package's parameter tree (numpy leaves) as the port's model."""
-    require_dense(cfg)
     dev = resolve_device(device)
-    out = {k: _map(v, lambda a: _leaf(a, dev)) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [
-        _map(tree["blocks"], lambda a, l=l: _leaf(np.asarray(a)[l], dev)) for l in range(cfg.n_layers)
-    ]
+    out = {k: _map(v, lambda a: _leaf(a, dev)) for k, v in tree.items() if k not in STACKED}
+    for name, n_layers in (("blocks", cfg.n_layers), ("dec_blocks", cfg.n_dec_layers)):
+        if name in tree:
+            out[name] = [
+                _map(tree[name], lambda a, l=l: _leaf(np.asarray(a)[l], dev)) for l in range(n_layers)
+            ]
     return ParamTree(out)
 
 
@@ -60,8 +65,8 @@ def params_to_numpy(params: ParamTree) -> dict:
     """The port's model as the JAX package's tree: numpy leaves, layers
     stacked on axis 0, bfloat16 leaves widened to float32."""
     out = {name: _to_numpy(p) for name, p in params.named_parameters(recurse=False)}
-    out.update({name: _tree_of(m) for name, m in params.named_children() if name != "blocks"})
-    out["blocks"] = _stack([_tree_of(b) for b in params.blocks])
+    for name, m in params.named_children():
+        out[name] = _stack([_tree_of(b) for b in m]) if name in STACKED else _tree_of(m)
     return out
 
 

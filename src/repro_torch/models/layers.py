@@ -1,4 +1,4 @@
-"""Layer primitives of the dense decoder (the dense part of the JAX
+"""Layer primitives shared by every architecture family (the JAX
 package's `models/layers.py`).
 
 Functions over parameter modules whose leaves keep the JAX names and
@@ -6,15 +6,19 @@ layouts (per layer):
 
   attn:  wq [d, H, hd]   wk/wv [d, Kv, hd]   wo [H, hd, d]  (+ optional bq/bk/bv)
   mlp:   wi [d, ff] (+ wg [d, ff] for GLU)   wo [ff, d]
+  moe:   router [d, E]   wi_e [E, d, ff] (+ wg_e)   wo_e [E, ff, d]
+         (+ shared: an mlp, and shared_gate [d, 1])
   norm:  scale [d]
+  embed: embed [vocab, d] (+ lm_head [d, vocab], frontend_proj [F, d])
 
 The JAX module's `shard(...)` calls (distributed/act.py) only annotate how
 activations lie on a device mesh; on one device they do nothing, so they
 are dropped here. Full-sequence attention runs the flash kernel wrapper
 (CUDA kernel on the card, plain version on the CPU); decode attention, the
-projections and the unembedding are plain PyTorch, as they are plain XLA
-in the JAX package. MoE, the SSM branch, modality frontends and int8
-weights are not ported yet (ROADMAP.md, "Modules to port", item 6).
+projections, the MoE dispatch and expert products and the unembedding are
+plain PyTorch, as they are plain XLA in the JAX package. The embedding
+and head leaves may be int8 (`quant.py`): the token gather dequantizes
+only the gathered rows.
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from ..obs.trace import span
 from .config import ModelConfig
+from .quant import dequantize_leaf, is_quantized_leaf
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -98,6 +104,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
+    """x @ w in the compute dtype (JAX's einsum over the last dim of x)."""
+    return torch.matmul(x, w.to(cd))
+
+
 def _project(x: torch.Tensor, w: torch.Tensor, bias, cd) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) (+ bias) in the compute dtype."""
     y = torch.matmul(x, w.to(cd).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
@@ -119,8 +130,9 @@ def _out_proj(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
-def attention_full(p, x: torch.Tensor, cfg: ModelConfig):
-    """Full-sequence causal attention (prefill / forward), x: [B, S, d] -> ([B, S, d]
+def attention_full(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True):
+    """Full-sequence attention (prefill / forward; `causal=False` for the
+    encoder), x: [B, S, d] -> ([B, S, d]
     output, rotated keys [B, S, Kv, hd], values [B, S, Kv, hd]); JAX's
     returns the output alone and `prefill_cache` recomputes the other two.
 
@@ -133,7 +145,7 @@ def attention_full(p, x: torch.Tensor, cfg: ModelConfig):
     k = rope(k, positions, cfg.rope_theta)
     o = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=cfg.sliding_window,
+        causal=causal, window=cfg.sliding_window,
     )
     return _out_proj(p, o.transpose(1, 2), cfg), k, v
 
@@ -248,15 +260,119 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None) ->
     return p
 
 
+def _glu(act, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """act(g) * h in float32, rounded once to h's dtype: XLA fuses the
+    reference's chain in float32 where PyTorch would round act(g) first."""
+    return (act(g.float()) * h).to(h.dtype)
+
+
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     act = _act(cfg.mlp_act)
-    h = torch.matmul(x, p.wi.to(cd))
+    h = _matmul(x, p.wi, cd)
     if is_glu(cfg.mlp_act):
-        h = act(torch.matmul(x, p.wg.to(cd))) * h
+        h = _glu(act, _matmul(x, p.wg, cd), h)
     else:
         h = act(h)
-    return torch.matmul(h, p.wo.to(cd))
+    return _matmul(h, p.wo, cd)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch, capacity-dropped, GShard-style)
+# ---------------------------------------------------------------------------
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    pd = dtype_of(cfg.param_dtype)
+    p = {
+        "router": _dense_init(gen, (d, e), pd, scale=0.02),
+        "wi_e": _dense_init(gen, (e, d, ff), pd, scale=1.0 / math.sqrt(d)),
+        "wo_e": _dense_init(gen, (e, ff, d), pd, scale=1.0 / math.sqrt(ff * 2 * cfg.n_layers)),
+    }
+    if is_glu(cfg.mlp_act):
+        p["wg_e"] = _dense_init(gen, (e, d, ff), pd, scale=1.0 / math.sqrt(d))
+    if cfg.shared_d_ff:
+        p["shared"] = init_mlp(gen, cfg, d_ff=cfg.shared_d_ff)
+        p["shared_gate"] = _dense_init(gen, (d, 1), pd, scale=0.02)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    return max(4, math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+
+def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
+    """One dispatch group: xf [T, d] -> [T, d].
+
+    Sort-based dispatch into per-expert capacity buffers (overflow dropped),
+    batched expert GEMMs, weighted combine. Router softmax over the selected
+    top-k (Mixtral convention).
+
+    The top k is a stable descending sort: `jax.lax.top_k` puts the lower
+    expert first on ties, which `torch.topk` does not promise, and bf16
+    router logits tie often. Dropped entries go to one spare buffer row
+    (JAX's out-of-range row under mode="drop"), which is discarded. The
+    combine gathers each token's k contributions and adds them in ascending
+    expert order, the order of JAX's scatter-add over the sorted entries,
+    with no atomics: the result repeats bitwise."""
+    cd = dtype_of(cfg.compute_dtype)
+    e, k = cfg.n_experts, cfg.top_k
+    t, d = xf.shape
+    dev = xf.device
+    with span("moe.dispatch"):
+        logits = _matmul(xf, p.router, cd).float()
+        top_logits, top_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        top_w = torch.softmax(top_logits[:, :k], dim=-1)  # [T, k]
+        flat_e = top_idx[:, :k].reshape(t * k)
+        flat_w = top_w.reshape(t * k)
+        sorted_e, order = torch.sort(flat_e, stable=True)
+        first_of_group = torch.searchsorted(sorted_e, sorted_e, side="left")
+        pos_in_e = torch.arange(t * k, device=dev) - first_of_group
+        keep = pos_in_e < cap
+        buf_idx = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)  # e * cap: the drop row
+        token_of = order // k
+        xbuf = xf.new_zeros(e * cap + 1, d).index_copy_(0, buf_idx, xf[token_of])
+        xbuf = xbuf[:e * cap].view(e, cap, d)
+    with span("moe.experts"):
+        act = _act(cfg.mlp_act)
+        h = torch.bmm(xbuf, p.wi_e.to(cd))
+        if hasattr(p, "wg_e"):
+            h = _glu(act, torch.bmm(xbuf, p.wg_e.to(cd)), h)
+        else:
+            h = act(h)
+        ybuf = torch.bmm(h, p.wo_e.to(cd)).view(e * cap, d)
+    with span("moe.combine"):
+        gathered = ybuf[torch.clamp_max(buf_idx, e * cap - 1)]
+        contrib = gathered * (flat_w[order] * keep).to(cd)[:, None]
+        # slot_of[i]: where flat entry i (token i // k) landed in the sort.
+        slot_of = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=dev))
+        per_token = contrib[slot_of.view(t, k).sort(dim=-1).values]  # [T, k, d], experts ascending
+        out = per_token[:, 0]
+        for j in range(1, k):
+            out = out + per_token[:, j]
+    return out
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d].
+
+    Dispatch runs per group (`cfg.moe_groups`; 0 or 1 is one group, and a
+    token count the groups do not divide falls back to one group, as in
+    JAX): each group routes its own tokens into its own capacity buffers.
+    A qwen2-moe-style shared expert adds its sigmoid-gated MLP."""
+    b, s, d = x.shape
+    t = b * s
+    groups = max(1, cfg.moe_groups)
+    if t % groups != 0:
+        groups = 1
+    tg = t // groups
+    cap = moe_capacity(cfg, tg)
+    xg = x.reshape(groups, tg, d)
+    out = torch.cat([_moe_dispatch_combine(p, xg[g], cfg, cap) for g in range(groups)])
+    if hasattr(p, "shared"):
+        cd = dtype_of(cfg.compute_dtype)
+        gate = torch.sigmoid(_matmul(x.reshape(t, d), p.shared_gate, cd).float()).to(cd)
+        out = out + gate * mlp_apply(p.shared, x, cfg).reshape(t, d)
+    return out.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------
@@ -267,21 +383,40 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
     p = {"embed": _dense_init(gen, (cfg.vocab, cfg.d_model), pd, scale=0.02)}
     if not cfg.tie_embeddings:
         p["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), pd)
+    if cfg.frontend != "none":
+        p["frontend_proj"] = _dense_init(gen, (cfg.frontend_dim, cfg.d_model), pd)
     return p
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gather then cast: equal to JAX's cast-then-gather, without casting
-    the whole table on every call."""
+    the whole table on every call. An int8 table is gathered as int8 and
+    only the gathered rows are dequantized."""
     cd = dtype_of(cfg.compute_dtype)
-    x = F.embedding(tokens, p.embed).to(cd)
+    table = p.embed
+    if is_quantized_leaf(table):
+        x = (getattr(table, "__q")[tokens].float() * getattr(table, "__s")).to(cd)
+    else:
+        x = F.embedding(tokens, table).to(cd)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
     return x
 
 
+def _weight(w, cd) -> torch.Tensor:
+    """A float or int8 leaf in the compute dtype."""
+    return dequantize_leaf(w, cd) if is_quantized_leaf(w) else w.to(cd)
+
+
+def embed_frontend(p, feats: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Stub modality frontend: precomputed patch/frame embeddings [B, S, F]
+    through the learned projector to [B, S, d]."""
+    cd = dtype_of(cfg.compute_dtype)
+    return torch.matmul(feats.to(cd), _weight(p.frontend_proj, cd))
+
+
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
-        return torch.matmul(x, p.embed.to(cd).T)
-    return torch.matmul(x, p.lm_head.to(cd))
+        return torch.matmul(x, _weight(p.embed, cd).T)
+    return torch.matmul(x, _weight(p.lm_head, cd))

@@ -1,7 +1,7 @@
 """The paper's Fig. 1 for the model zoo: per-architecture split profiles
 (`profile`), the split-point Pareto search over them (`pareto`), and the
-data plane, a dense model split at a layer boundary run as two partitions
-(`executor`)."""
+data plane, a model of any family split at a layer boundary (encoder /
+decoder for encdec) run as two partitions (`executor`)."""
 from .profile import (  # noqa: F401
     ArchProfile,
     apps_from_profiles,

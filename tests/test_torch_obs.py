@@ -80,3 +80,34 @@ def test_enabled_spans_are_profiler_ranges():
         with tr.span("serve.prefill"):
             torch.ones(4).sum()
     assert "serve.prefill" in {e.key for e in prof.key_averages()}
+
+
+def test_profile_round_phases_matches_jax_keys_and_spans(tmp_path):
+    """The round-phase profile on two iot instances on the CPU: JAX's keys
+    and batch / t_phi / block_apps, finite times, shares summing to 1, and
+    the four spans nested as JAX's, passing the JAX package's validator."""
+    from repro.core import scenarios as j_scenarios
+    from repro.obs import profile_round_phases as j_profile
+    from repro_torch.core import scenarios as t_scenarios
+    from repro_torch.obs import profile_round_phases
+
+    want = j_profile([j_scenarios.iot(), j_scenarios.iot()], t_phi=2, reps=1)
+    t_trace.configure(enabled=True)
+    t_trace.reset()
+    try:
+        got = profile_round_phases([t_scenarios.iot(device="cpu")] * 2, t_phi=2, reps=2, device="cpu")
+        events = t_trace.TRACER.events()
+        t_trace.TRACER.write_jsonl(tmp_path / "phases.jsonl")
+    finally:
+        t_trace.configure(enabled=False)
+        t_trace.reset()
+    assert list(got) == list(want)
+    assert {k: got[k] for k in ("batch", "t_phi", "block_apps")} == {"batch": 2, "t_phi": 2, "block_apps": 1}
+    assert all(np.isfinite(v) and v >= 0 for v in got.values())
+    assert abs(sum(got[f"{k}_share"] for k in ("placement", "forwarding", "round_eval")) - 1) < 1e-3
+    by_name = {e.name: e for e in events}
+    assert set(by_name) == {"round.phases", "round.placement", "round.forwarding", "round.round_eval"}
+    assert all(by_name[n].parent == by_name["round.phases"].id for n in by_name if n != "round.phases")
+    assert by_name["round.forwarding"].attrs == {"t_phi": 2}
+    _, errors = validate_lines((tmp_path / "phases.jsonl").read_text().splitlines())
+    assert errors == []

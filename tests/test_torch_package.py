@@ -3,6 +3,7 @@ package, its entry points default to the GPU and never fall back to the
 CPU on their own, and its kernel wrappers never stand the plain version in
 for the kernel on a CUDA tensor."""
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -24,7 +25,8 @@ from repro_torch.launch import control as control_cli
 from repro_torch.launch import fleet as fleet_cli
 from repro_torch.launch import pareto as pareto_cli
 from repro_torch.launch import serve
-from repro_torch.models import init_caches, init_params
+from repro_torch.models import init_caches, init_params, quantize_params
+from repro_torch.obs import profile_round_phases
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.partition import apps_from_profiles, profile_arch, run_partition, split_params, sweep_zoo
 
@@ -141,12 +143,18 @@ def test_constructors_and_solvers_default_to_cuda(monkeypatch):
 
 
 def test_model_entry_points_default_to_cuda(monkeypatch):
-    """The serve path's entry points, called without device=, raise too."""
+    """The serve path's entry points, called without device=, raise too:
+    for every family, the encoder through the executor, int8 trees and the
+    round-phase profiler."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config("qwen1.5-0.5b")
     model = init_params(cfg, 0, device="cpu")
     p1, _ = split_params(cfg, model, 1)
     tree = params_to_numpy(model)
+    int8_tree = params_to_numpy(quantize_params(model))
+    enc_cfg = reduced_config("seamless-m4t-medium")
+    enc_p1, _ = split_params(enc_cfg, init_params(enc_cfg, 0, device="cpu"), 0)
+    feats = torch.zeros(1, 4, enc_cfg.frontend_dim)
     prompts = np.zeros((2, 4), np.int32)
     for call in (
         lambda: init_params(cfg),
@@ -155,6 +163,15 @@ def test_model_entry_points_default_to_cuda(monkeypatch):
         lambda: run_partition(cfg, p1, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, part=1),
         lambda: serve.serve(cfg, model, prompts, batch_slots=2, max_new=2, max_seq=16),
         lambda: serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--requests", "1"]),
+        *(lambda a=a: init_params(reduced_config(a)) for a in ("mamba2-370m", "hymba-1.5b", "mixtral-8x22b",
+                                                               "seamless-m4t-medium", "internvl2-76b")),
+        lambda: init_caches(enc_cfg, 1, 8),
+        lambda: init_caches(reduced_config("hymba-1.5b"), 1, 8),
+        lambda: run_partition(enc_cfg, enc_p1, {"feats": feats}, part=1),
+        lambda: init_params(dataclasses.replace(cfg, quantize_int8=True)),
+        lambda: params_from_jax(cfg, int8_tree),
+        lambda: serve.main(["--arch", "mamba2-370m", "--reduced", "--requests", "1"]),
+        lambda: profile_round_phases([scenarios.iot(device="cpu")], t_phi=1),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
