@@ -1460,7 +1460,7 @@ def phase9(counter):
 
 
 # Names of the obs spans (torch.profiler ranges while tracing is on).
-SPAN_PREFIXES = ("serve.", "moe.", "ssm.", "round.", "control.")
+SPAN_PREFIXES = ("serve.", "moe.", "ssm.", "round.", "control.", "flash.")
 
 
 def profile(fn, families, wall_ms=None, regions=()) -> dict:
@@ -2218,6 +2218,358 @@ def phase10(counter) -> None:
     emit({"phase": 10, "name": "families", "wall_s": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training on the card.
+# ---------------------------------------------------------------------------
+# The full run: qwen1.5-0.5b at full depth and width, fp32 params, bf16
+# compute, remat, SyntheticLM batches of 8 x 1024 tokens.
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_CKPT_EVERY, TRAIN_RESUME_AT = (
+    "qwen1.5-0.5b", 8, 1024, 30, 3e-4, 10, 20)
+# Card against CPU, fp32 compute: one reduced config a family, and
+# qwen1.5-0.5b at full width cut to 2 layers.
+TRAIN_CHECK_ARCHS = ("qwen1.5-0.5b", "qwen2-moe-a2.7b", "mamba2-370m", "hymba-1.5b", "internvl2-76b",
+                     "seamless-m4t-medium")
+CHECK_LR = 1e-3
+# Flash gradients against autograd through the plain version: bf16
+# gradients are rounded once from fp32 on both sides (one bf16 ulp is 2^-8
+# of the value), fp32 gradients differ in summation order only.
+FLASH_GRAD_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}  # max abs error / max |gradient|
+# SDPA's backward (the yardstick) rounds P and dS to bf16 on the way: held
+# to the plain version at phase 1's bf16 bound, relative to the largest
+# gradient (read 8.4e-3 at the training shape).
+SDPA_GRAD_TOL = FLASH_BF16_TOL
+TRAIN_FAMILY_KERNELS = {**FAMILY_KERNELS, "reduce": ("reduce_kernel", "softmax")}
+# (tag, B, H, Kv, S, D, causal, window, q_offset, dtype): the training
+# step's shape, hymba's window with GQA 25:5, and an fp32 (CUDA-core) case
+# whose first 64 rows see no key.
+FLASH_GRAD_CASES = (
+    ("train step", 8, 16, 16, 1024, 64, True, None, 0, "bfloat16"),
+    ("hymba window 1024", 8, 25, 5, 2048, 64, True, 1024, 0, "bfloat16"),
+    ("fp32 GQA 4:1 window 128, q_offset -64", 2, 8, 2, 512, 64, True, 128, -64, "float32"),
+)
+
+
+def rel_max(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase11_flash_grad() -> list:
+    """The flash kernel's autograd route at the training shapes: the
+    forward bitwise the kernel call, dq / dk / dv against autograd through
+    the plain version (`attention_chunked`) on the card, and the times of
+    the kernel forward, the plain backward and SDPA's backward (held to
+    the plain version too, where one SDPA call computes the function)."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_chunked, flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    rows = []
+    for tag, b, h, kv, s, d, causal, window, q_offset, dtype_name in FLASH_GRAD_CASES:
+        dt, tol = getattr(torch, dtype_name), FLASH_GRAD_TOL[dtype_name]
+
+        def make(heads):  # the model's transposed [B, S, H, D] view
+            return torch.randn(b, s, heads, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+
+        q, k, v, do = make(h), make(kv), make(kv), make(h)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        direct = fa_ops._launch(q, k, v, causal, window, q_offset)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, **kw)
+        forward_bitwise = torch.equal(out, direct)
+        grads = torch.autograd.grad(out, leaves, do)
+        plain_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attention_chunked(*plain_leaves, **kw), plain_leaves, do)
+        torch.cuda.synchronize()
+        errs = {n: rel_max(g, w) for n, g, w in zip(("dq", "dk", "dv"), grads, want)}
+        dead = max(0, min(s, -q_offset))
+        dead_zero = bool((grads[0][:, :, :dead] == 0).all()) if dead else None
+        del out, grads, leaves, plain_leaves
+        live = int(flash_live_mask(s, s, causal, window, q_offset).sum()) * b * h
+        esize = q.element_size()
+        bytes_bwd = (2 * (q.numel() + k.numel() + v.numel()) + do.numel()) * esize  # read q, k, v, dO; write dq, dk, dv
+        ops_bwd = 10 * d * live  # S = QK^T again, dP = dO V^T, dV, dQ, dK: 2d each a live score
+        t_b, t_o = bytes_bwd / HBM_BYTES_PER_S, ops_bwd / (BF16_OPS_PER_S if dt == bf16 else FP32_OPS_PER_S)
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        library = sdpa_call(*lib_in, causal, window, q_offset)
+        sdpa_bwd_ms = lib_err = None
+        if library is not None:
+            lib_out = library()
+            lib_grads = torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
+            lib_err = max(rel_max(g, w) for g, w in zip(lib_grads, want))
+            if not lib_err <= SDPA_GRAD_TOL:
+                raise AssertionError(f"phase 11 flash {tag}: SDPA's gradient computes another function ({lib_err})")
+            sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, do, retain_graph=True), 5, 1)
+            del lib_out, lib_grads
+        del lib_in, library
+        row = {
+            "shape": f"{tag}: B={b} H={h} Kv={kv} S={s} D={d} {dtype_name}", "variant": fa_ops._variant(dt, d),
+            "sdpa_grad_err_rel_max": lib_err,
+            "forward_bitwise_kernel": forward_bitwise, "grad_err_rel_max": errs, "dead_rows": dead,
+            "dead_row_dq_zero": dead_zero,
+            "forward_ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), 10),
+            "plain_backward_ms": cuda_ms(lambda: fa_ops.flash_attention_backward(q, k, v, do, **kw), 3, 1),
+            "sdpa_backward_ms": sdpa_bwd_ms,
+            "backward_bound_ms": 1e3 * max(t_b, t_o), "backward_bound_by": "bytes" if t_b >= t_o else "operations",
+        }
+        rows.append(row)
+        del q, k, v, do, direct, want
+        free_device()
+        bad = [n for n, e in errs.items() if not e <= tol]
+        if not forward_bitwise or bad or dead_zero is False:
+            raise AssertionError(f"phase 11 flash {tag}: {row}")
+    emit({"phase": 11, "name": "flash_grad", "rows": rows})
+    return rows
+
+
+def train_batch(cfg, rng, b: int, s: int, device) -> dict:
+    """`family_batch` plus the labels a frontend arch's loss reads."""
+    import torch
+
+    out = family_batch(cfg, rng, b, s, enc_len=s, device=device)
+    if cfg.frontend != "none" and cfg.family != "encdec":
+        out["labels"] = torch.from_numpy(rng.randint(0, cfg.vocab, (b, s)).astype("int32")).to(device)
+    return out
+
+
+def phase11_card_vs_cpu() -> dict:
+    """Loss, every gradient leaf and 3 AdamW steps of one model a family on
+    the card against the CPU, the same weights, fp32 compute; and
+    `compress_int8` of the largest gradient on the card against the CPU
+    on the same tensor, bitwise."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, compress_int8
+
+    out, failures = {}, []
+    cases = [(a, dataclasses.replace(reduced_config(a), compute_dtype="float32"), 2, 64) for a in TRAIN_CHECK_ARCHS]
+    cases.append((f"{TRAIN_ARCH} full width, 2 layers",
+                  dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, compute_dtype="float32"), 1, 128))
+    for name, cfg, b, s in cases:
+        rng = np.random.RandomState(3)
+        p_cpu = init_params(cfg, 0, device="cpu")
+        p_gpu = copy.deepcopy(p_cpu).to("cuda")
+        batches = [train_batch(cfg, rng, b, s, "cpu") for _ in range(3)]
+        on_gpu = [{k: t.cuda() for k, t in x.items()} for x in batches]
+        l_cpu, g_cpu = value_and_grad(cfg, p_cpu, batches[0])
+        l_gpu, g_gpu = value_and_grad(cfg, p_gpu, on_gpu[0])
+        loss_rel = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+        leaf_rel = max(
+            (torch.linalg.vector_norm(g_gpu[n].cpu() - g) / torch.linalg.vector_norm(g).clamp_min(1e-30)).item()
+            for n, g in g_cpu.items())
+        big = max(g_gpu, key=lambda n: g_gpu[n].numel())
+        cq = compress_int8(g_gpu[big])
+        hq = compress_int8(g_gpu[big].cpu())
+        compress_bitwise = all(torch.equal(x.cpu(), y) for x, y in zip(cq, hq))
+        step = make_train_step(cfg, lr=CHECK_LR)
+        o_cpu, o_gpu = adamw_init(p_cpu), adamw_init(p_gpu)
+        for x_cpu, x_gpu in zip(batches, on_gpu):
+            p_cpu, o_cpu, _ = step(p_cpu, o_cpu, x_cpu)
+            p_gpu, o_gpu, _ = step(p_gpu, o_gpu, x_gpu)
+        # AdamW's step divides by sqrt(vhat) + eps: an element whose
+        # gradient lies within summation-order noise of zero takes a step of
+        # up to lr either way, so params are held at rtol 1e-3 plus one
+        # step, lr (read 0.77 lr at full width); how many elements go past
+        # rtol 1e-3 + 0.01 lr is reported.
+        excess, beyond, n_el = {}, 0, 0
+        for (n, a), (_, c) in zip(p_gpu.named_parameters(), p_cpu.named_parameters()):
+            e = (a.detach().cpu() - c.detach()).abs() - 1e-3 * c.detach().abs()
+            excess[n] = e.max().item() / CHECK_LR
+            beyond += int((e > 0.01 * CHECK_LR).sum())
+            n_el += e.numel()
+        worst = max(excess, key=excess.get)
+        p_err_lr = excess[worst]
+        mom_rel = max(rel_max(o_gpu[m][n].cpu(), o_cpu[m][n]) for m in ("mu", "nu") for n in o_cpu[m])
+        out[name] = {"loss_rel": loss_rel, "grad_leaf_rel_l2_max": leaf_rel, "compress_int8_bitwise": compress_bitwise,
+                     "compressed_leaf": big, "params_excess_over_rtol_in_lr": p_err_lr, "params_worst_leaf": worst,
+                     "params_beyond_0.01_lr": beyond, "params": n_el, "moments_rel_max": mom_rel}
+        if not (loss_rel <= 1e-4 and leaf_rel <= 1e-3 and compress_bitwise and p_err_lr <= 1.0 and mom_rel <= 1e-3):
+            failures.append(name)
+        del p_cpu, p_gpu, o_cpu, o_gpu, g_cpu, g_gpu
+        free_device()
+    emit({"phase": 11, "name": "card_vs_cpu", "cases": out})
+    if failures:
+        raise AssertionError(f"phase 11: card vs CPU failed for {failures}: {out}")
+    return out
+
+
+def phase11_train(counter) -> dict:
+    """The full run (module doc): 30 steps with a checkpoint every 10, the
+    microbatch check, one step's profile, a resume from step 20 and the
+    card-to-CPU-and-back restore."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, trainable
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(TRAIN_ARCH)
+    if not (cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16" and cfg.remat):
+        raise AssertionError(f"phase 11: {TRAIN_ARCH} is not fp32 params, bf16 compute, remat")
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=1234)
+    stream = make_pipeline(data_cfg)
+    batches = [torch.from_numpy(stream.next_batch()) for _ in range(TRAIN_STEPS + 1)]
+    ckpt_dir = ROOT / "build" / "phase11_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = CheckpointManager(ckpt_dir, keep=2)
+    step_fn = make_train_step(cfg, lr=TRAIN_LR, grad_clip=1.0)
+    try:
+        params = init_params(cfg, 0, device="cuda")
+        n_params = sum(p.numel() for p in params.parameters())
+        opt = adamw_init(trainable(params))
+
+        # microbatches=2 against 1 on step 0, from copies of the same state.
+        p2, o2 = copy.deepcopy(params), copy.deepcopy(opt)
+        _, _, m2 = make_train_step(cfg, lr=TRAIN_LR, microbatches=2)(p2, o2, {"tokens": batches[0].cuda()})
+        loss_mb2 = m2["loss"].item()
+        del p2, o2, m2
+        free_device()
+
+        losses, norms, step_ms, save_s = [], [], [], []
+
+        def run():
+            nonlocal params, opt
+            for i in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, {"tokens": batches[i].cuda()})
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                if (i + 1) % TRAIN_CKPT_EVERY == 0:
+                    t0 = time.perf_counter()
+                    ckpt.save(i + 1, {"params": params, "opt": opt}, extra={"data": {"seed": 1234, "step": i + 1}})
+                    save_s.append(time.perf_counter() - t0)
+
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        counter.run(run)
+        run_s = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated()
+        flash_launches = counter.last["flash_attention"]
+        steady = sorted(step_ms[1:])
+        p50, p95 = steady[len(steady) // 2], steady[min(len(steady) - 1, int(0.95 * len(steady)))]
+
+        # One more step under the profiler, the plain backward as its span.
+        obs_trace.configure(enabled=True)
+        obs_trace.reset()
+        prof = profile(lambda: step_fn(params, opt, {"tokens": batches[TRAIN_STEPS].cuda()}),
+                       TRAIN_FAMILY_KERNELS, wall_ms=p50, regions=("flash.backward",))
+        obs_trace.configure(enabled=False)
+        del params, opt
+        free_device()
+
+        # Resume: a fresh model and optimizer restored from step 20 run
+        # steps 20-29; the stream restored from the checkpoint's extra.
+        fresh = init_params(cfg, 1, device="cuda")
+        t0 = time.perf_counter()
+        tree, extra, at = ckpt.restore(TRAIN_RESUME_AT, {"params": fresh, "opt": adamw_init(trainable(fresh))})
+        fresh.load_state_dict(tree["params"])
+        r_opt = tree["opt"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        r_stream = make_pipeline(data_cfg, extra["data"])
+        r_losses = []
+        for i in range(at, TRAIN_STEPS):
+            toks = torch.from_numpy(r_stream.next_batch())
+            if not torch.equal(toks, batches[i]):
+                raise AssertionError(f"phase 11: the restored stream's batch {i} differs")
+            fresh, r_opt, m = step_fn(fresh, r_opt, {"tokens": toks.cuda()})
+            r_losses.append(m["loss"].item())
+        resume_bitwise = r_losses == losses[at:]
+        resume_rel = max(abs(a - b) / abs(b) for a, b in zip(r_losses, losses[at:]))
+        del fresh, r_opt
+        # The checkpoint the card wrote, restored on the CPU: bitwise the
+        # card's restore (`tree`, which the resumed steps did not touch).
+        like = {"params": init_params(cfg, 1, device="cpu")}
+        like["opt"] = adamw_init(like["params"])
+        host, _, _ = ckpt.restore(TRAIN_RESUME_AT, like, device="cpu")
+        elastic = all(torch.equal(host["params"][n], tree["params"][n].cpu()) for n in host["params"]) and all(
+            torch.equal(host["opt"][m][n], tree["opt"][m][n].cpu()) for m in ("mu", "nu") for n in host["opt"][m])
+        del like, host, tree
+        free_device()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # The CLI's entry point on the card at the reduced config, in one
+    # subprocess (a process takes seconds to reach the card): 8 steps, then
+    # --resume to 12.
+    cli_dir = ROOT / "build" / "phase11_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    base = ["--arch", TRAIN_ARCH, "--reduced", "--global-batch", "4", "--seq-len", "64", "--ckpt-every", "4",
+            "--ckpt-dir", str(cli_dir), "--device", "cuda"]
+    code = ("from repro_torch.launch import train\n"
+            f"assert train.main({base!r} + ['--steps', '8']) == 0\n"
+            f"assert train.main({base!r} + ['--steps', '12', '--resume']) == 0\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    try:
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT,
+                             timeout=300)
+        cli_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_ok = cli.returncode == 0 and "resumed from step 8" in cli.stdout and "done: first-5-avg=" in cli.stdout
+
+    tokens = TRAIN_B * TRAIN_S
+    result = {
+        "phase": 11, "name": "train", "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+        "batch": [TRAIN_B, TRAIN_S], "steps": TRAIN_STEPS, "lr": TRAIN_LR, "remat": cfg.remat,
+        "first_step_ms": step_ms[0], "step_ms_p50": p50, "step_ms_p95": p95, "tokens_per_s": tokens / (p50 / 1e3),
+        "run_s": run_s, "peak_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
+        "first5_mean": float(np.mean(losses[:5])), "last5_mean": float(np.mean(losses[-5:])),
+        "loss_microbatches_2": loss_mb2, "loss_microbatches_1": losses[0],
+        "checkpoint_save_s": save_s, "restore_s": restore_s, "resume_losses_bitwise": resume_bitwise,
+        "resume_loss_rel_max": resume_rel, "restore_card_cpu_card_bitwise": elastic,
+        "flash_launches": flash_launches, "flash_launches_per_step": flash_launches / TRAIN_STEPS,
+        "flash_forward_ms_in_step": (prof.get("device_ms_by_family") or {}).get("flash", "not measured"),
+        "flash_plain_backward_ms_in_step": (prof.get("regions_device_ms") or {}).get("flash.backward", "not measured"),
+        "profile_one_step": prof, "cli_resume_ok": cli_ok, "cli_s": cli_s,
+    }
+    emit(result)
+    checks = {
+        "finite": all(math.isfinite(x) for x in losses + norms),
+        "loss falls": result["last5_mean"] < result["first5_mean"],
+        "microbatches": abs(loss_mb2 - losses[0]) <= 1e-4 * abs(losses[0]),
+        "resume": resume_bitwise, "elastic restore": elastic,
+        "flash launched twice a layer a step (forward, remat)": flash_launches == 2 * cfg.n_layers * TRAIN_STEPS,
+        "cli": cli_ok,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        tail = "" if cli_ok else cli.stdout[-1500:] + cli.stderr[-1500:]
+        raise AssertionError(f"phase 11: {failed} {tail}")
+    return result
+
+
+def phase11(counter) -> dict:
+    """Training on the card (module doc)."""
+    t = [time.perf_counter()]
+    grad_rows = phase11_flash_grad()
+    t.append(time.perf_counter())
+    phase11_card_vs_cpu()
+    t.append(time.perf_counter())
+    result = phase11_train(counter)
+    t.append(time.perf_counter())
+    emit({"phase": 11, "name": "training", "wall_s": t[-1] - t[0], "flash_grad_s": t[1] - t[0],
+          "card_vs_cpu_s": t[2] - t[1], "train_s": t[3] - t[2]})
+    return {"flash_grad_rows": grad_rows, "train": result}
+
+
 def main() -> int:
     import torch
 
@@ -2285,6 +2637,12 @@ def main() -> int:
     phase8(core, counter, fleet_problems)
     phase9(counter)
     phase10(counter)
+    trained = phase11(counter)
+    summary["flash_attention"]["backward"] = {
+        "route": "plain (recompute under autograd, kernels/flash_attention/ops.py::flash_attention_backward)",
+        "rows": trained["flash_grad_rows"],
+        "launches_per_train_step": trained["train"]["flash_launches_per_step"],
+    }
 
     sources = {
         "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",
@@ -2308,6 +2666,7 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"], "shape": s["shape"],
             **({"shapes": s["shapes"]} if "shapes" in s else {}),
+            **({"backward": s["backward"]} if "backward" in s else {}),
             **({"variants": counter.total_variants[name]} if name in counter.total_variants else {}),
         })
     emit({"kernels": kernels})

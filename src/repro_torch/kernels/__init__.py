@@ -6,7 +6,8 @@
            argmin: APSP squaring and the next-hop table (csrc/minplus.cu)
   flash_attention
            streaming-softmax attention (GQA, causal, sliding window) of the
-           model substrate's prefill and forward (csrc/flash_attention.cu)
+           model substrate's prefill and forward (csrc/flash_attention.cu);
+           its gradient is the plain backward (ops.flash_attention_backward)
 
 Each package ships ops.py (wrapper: CUDA tensor -> kernel, CPU tensor ->
 plain version) and ref.py (the plain PyTorch versions). `_build` compiles

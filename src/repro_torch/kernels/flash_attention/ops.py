@@ -7,6 +7,17 @@ CUDA-core kernel otherwise (`_variant`, by dtype and head dim alone). CPU
 tensors take the plain route the JAX package takes without Pallas:
 `attention_ref`, or the streaming `attention_chunked` above
 `_CHUNKED_THRESHOLD`. There is no switch and no fallback between them.
+
+Gradients. The JAX package has no backward kernel: it trains on its jnp
+path, which XLA differentiates. The CUDA route is a `torch.autograd.Function`
+(`_FlashAttention`) whose forward is the kernel launch and whose backward
+is `flash_attention_backward`, the plain backward: it recomputes the
+attention in plain PyTorch on the same device, in fp32, under autograd,
+one query chunk at a time, and returns dq, dk, dv. It differentiates the
+function the kernel computes, so a query row that sees no key has output
+0 and gradient 0. It is the backward's only route; a hand-written backward
+kernel is queued (ROADMAP.md, "Modules to port", item 7). The CPU route is
+plain PyTorch, which autograd differentiates directly.
 """
 from __future__ import annotations
 
@@ -15,7 +26,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import attention_chunked, attention_ref
+from ...obs.trace import span
+from .ref import _mask, attention_chunked, attention_ref
 
 # Above this q*kv sequence product the CPU path streams over chunks (the
 # [B, H, Sq, Sk] score tensor would not fit in memory).
@@ -90,6 +102,63 @@ def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.T
     return out
 
 
+def _attention_rows(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
+    """The function the kernel computes, in plain PyTorch: `attention_ref`
+    with the rows that see no key set to 0 (attention_ref's softmax over
+    all-NEG scores would give them the mean of V)."""
+    o = attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    q_pos = q_offset + torch.arange(q.shape[2], device=q.device)
+    live = _mask(q_pos, torch.arange(k.shape[2], device=q.device), causal, window).any(-1)
+    return torch.where(live[:, None], o, torch.zeros((), dtype=o.dtype, device=o.device))
+
+
+def flash_attention_backward(q, k, v, do, *, causal: bool = True, window: int | None = None,
+                             q_offset: int = 0):
+    """(dq, dk, dv) of the flash kernel's function at (q, k, v) for the
+    output gradient `do`: the plain backward. Each query chunk's attention
+    is recomputed from fp32 copies under autograd (`_attention_rows`) and
+    differentiated; dk and dv are summed over the chunks in fp32, and each
+    gradient is rounded once to its input's dtype. One chunk holds every
+    query up to `_CHUNKED_THRESHOLD` scores, as many rows as fit in it
+    above, so the [chunk, Sk] scores bound the memory as
+    `attention_chunked`'s chunks bound the forward's. Runs on the device
+    of its inputs, the CPU included."""
+    sq, sk = q.shape[2], k.shape[2]
+    q_chunk = sq if sq * sk <= _CHUNKED_THRESHOLD else max(1, _CHUNKED_THRESHOLD // sk)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kf = k.detach().float().requires_grad_()
+    vf = v.detach().float().requires_grad_()
+    with torch.enable_grad(), span("flash.backward", sq=sq, sk=sk):
+        for a in range(0, sq, q_chunk):
+            qc = q[:, :, a:a + q_chunk].detach().float().requires_grad_()
+            o = _attention_rows(qc, kf, vf, causal, window, q_offset + a)
+            gq, gk, gv = torch.autograd.grad(o, (qc, kf, vf), do[:, :, a:a + q_chunk].float())
+            dq[:, :, a:a + q_chunk] = gq
+            dk += gk
+            dv += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA route with a gradient: forward = the kernel launch,
+    backward = `flash_attention_backward` (the plain backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = (causal, window, q_offset)
+        return _launch(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_offset = ctx.attn
+        dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal, window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, H, Sq, D]
     k: torch.Tensor,  # [B, Kv, Sk, D]
@@ -100,9 +169,11 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Softmax attention, q head h against kv head h // (H // Kv); the
-    output has q's shape, dtype and layout."""
+    output has q's shape, dtype and layout. Differentiable on both routes."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         if q.shape[2] * k.shape[2] > _CHUNKED_THRESHOLD:
             return attention_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
         return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     return _launch(q, k, v, causal, window, q_offset)

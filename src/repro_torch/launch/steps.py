@@ -1,11 +1,84 @@
-"""Step configuration for serving (the serve part of the JAX package's
-`launch/steps.py`; its train and prefill step builders wait for the
-training slice)."""
+"""Step functions (the JAX package's `launch/steps.py`):
+
+train_step  : forward loss -> grads -> global-norm clip -> AdamW, optionally
+              with the gradient accumulated in fp32 over `microbatches`
+              (an activation-memory lever)
+prefill_step: full-prompt forward building the caches + last logits
+serve_step  : one-token decode against the caches
+
+The train step runs where the parameters live; `torch.autograd.grad` takes
+the place of `jax.value_and_grad`. The dry run's input specs
+(`batch_specs`, `param_specs`, `opt_specs`, `cache_specs`) wait for their
+slice (ROADMAP.md, "Modules to port", item 6).
+"""
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from ..models import model as M
 from ..models.config import ModelConfig
+from ..optim import adamw_update, clip_by_global_norm
+
+
+def value_and_grad(cfg: ModelConfig, params: M.ParamTree, batch: dict):
+    """(loss, {name: gradient}) of `loss_fn` at `params`; a leaf the loss
+    does not reach gets a zero gradient, as in JAX."""
+    leaves = M.trainable(params)
+    loss = M.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, grad_clip: float = 1.0,
+                    microbatches: int = 1):
+    """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm"}). `params` (a `ParamTree`) is updated in place and
+    returned; the optimizer state is new, as JAX's. With `microbatches` >
+    1 every batch leaf is cut into that many slices along axis 0, their
+    gradients summed in fp32 in order and divided by the count, and the
+    loss is the mean of theirs."""
+
+    def slice_mb(i, t):
+        mb = t.shape[0] // microbatches
+        return t[i * mb:(i + 1) * mb]
+
+    def train_step(params, opt_state, batch):
+        if microbatches > 1:
+            gsum, losses = None, []
+            for i in range(microbatches):
+                loss_i, g = value_and_grad(cfg, params, {k: slice_mb(i, t) for k, t in batch.items()})
+                gsum = ({n: x.float() for n, x in g.items()} if gsum is None
+                        else {n: gsum[n] + g[n].float() for n in gsum})
+                losses.append(loss_i)
+            grads = {n: x / microbatches for n, x in gsum.items()}
+            loss = torch.mean(torch.stack(losses))
+        else:
+            loss, grads = value_and_grad(cfg, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        leaves = {n: p.detach() for n, p in params.named_parameters()}
+        new_params, new_opt = adamw_update(grads, opt_state, leaves, lr)
+        with torch.no_grad():
+            for n, p in leaves.items():
+                p.copy_(new_params[n])
+        return params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, total_len: int):
+    def prefill_step(params, batch):
+        return M.prefill(cfg, params, batch, total_len)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    def serve_step(params, caches, token, pos):
+        return M.decode_step(cfg, params, caches, token, pos)
+
+    return serve_step
 
 
 def serve_config(cfg: ModelConfig) -> ModelConfig:

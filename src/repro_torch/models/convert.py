@@ -11,6 +11,13 @@ become one scalar a layer, and stack back to [L]. numpy has no
 bfloat16 of its own, so a bfloat16 leaf arrives as the 2-byte dtype named
 "bfloat16" that JAX hands out (read through its raw bits) and leaves as
 float32, which holds every bfloat16 value exactly.
+
+Training state crosses the same way. The port keys gradients and AdamW
+moments by parameter name (`blocks.0.attn.wq`); `named_to_numpy` stacks
+such a dict into the JAX tree, and `opt_state_from_jax` /
+`opt_state_to_numpy` move a whole AdamW state ({"mu", "nu", "step"}), so a
+run can start from the same optimizer state in both packages and a test
+can compare them leaf by leaf.
 """
 from __future__ import annotations
 
@@ -51,7 +58,9 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device="cuda") -> ParamTree
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A host copy (never a view of a CPU parameter, which training
+    updates in place)."""
+    t = t.detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
@@ -75,3 +84,38 @@ def _stack(layers: list):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in layers]) for k in first}
     return np.stack(layers)
+
+
+def named_to_numpy(named: dict) -> dict:
+    """{dotted parameter name: tensor} (gradients, moments) as the JAX
+    package's tree: numpy leaves, layers stacked on axis 0."""
+    nested: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        d = nested
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = _to_numpy(t)
+    for name in STACKED:
+        if name in nested:
+            layers = nested[name]
+            nested[name] = _stack([layers[str(l)] for l in range(len(layers))])
+    return nested
+
+
+def opt_state_from_jax(cfg: ModelConfig, opt: dict, *, device="cuda") -> dict:
+    """The JAX package's AdamW state (numpy leaves) as the port's: fp32
+    moments keyed by parameter name and the int32 step, on `device`."""
+    dev = resolve_device(device)
+
+    def named(tree):
+        return {n: p.detach() for n, p in params_from_jax(cfg, tree, device=dev).named_parameters()}
+
+    step = torch.tensor(np.asarray(opt["step"]), dtype=torch.int32, device=dev)
+    return {"mu": named(opt["mu"]), "nu": named(opt["nu"]), "step": step}
+
+
+def opt_state_to_numpy(opt: dict) -> dict:
+    """The port's AdamW state as the JAX package's tree of numpy leaves."""
+    return {"mu": named_to_numpy(opt["mu"]), "nu": named_to_numpy(opt["nu"]),
+            "step": np.asarray(opt["step"].cpu())}

@@ -1,15 +1,16 @@
 """Model assembly: family-specific blocks, layer stacks, and the public
-forward / prefill / decode entry points (the JAX package's
-`models/model.py`, serving part).
+forward / loss / prefill / decode entry points (the JAX package's
+`models/model.py`).
 
 Families: dense, moe (attention + mixture of experts), ssm (Mamba-2),
 hybrid (Hymba-style parallel attention + SSM in every block) and encdec
 (encoder-decoder with cross attention); dense and encdec archs may carry a
 stub modality frontend (`frontend_proj` on precomputed features).
 Interleaved hybrids (`hybrid_attn_period >= 1`) are profile-only, as in
-the reference: `init_params` raises its ValueError. The training entry
-points (`loss_fn`, `_chunked_ce`) and the dry run's `param_specs` wait for
-their slices (ROADMAP.md, "Modules to port", item 6).
+the reference: `init_params` raises its ValueError. `loss_fn` is the
+training loss (next-token cross entropy, optionally streamed over vocab
+chunks by `_chunked_ce`); the dry run's `param_specs` waits for its slice
+(ROADMAP.md, "Modules to port", item 6).
 
 Parameters live in a `ParamTree`, an `nn.Module` whose names follow the
 JAX leaves: `embed.embed` (+ `embed.lm_head` when untied,
@@ -20,11 +21,15 @@ scans over them, the port keeps one child module per layer and loops;
 int8 leaves (`quant.py`) are dequantized one layer at a time inside the
 loops, as in JAX's scan bodies. The functions run on the device the
 parameters live on; `init_params` takes `device=` (default "cuda", which
-raises without a GPU).
+raises without a GPU). Parameters are built without gradients (serving);
+`trainable` turns them on for training. With `cfg.remat`, a forward under
+autograd checkpoints each layer (`torch.utils.checkpoint`, non-reentrant):
+the counterpart of JAX's `jax.checkpoint` around each scanned layer.
 
 Batch formats:
   LM families      {"tokens": integer [B, S]}
-  frontend archs   {"feats": [B, S, frontend_dim]} (+ "labels", unused here)
+  frontend archs   {"feats": [B, S, frontend_dim], "labels": integer [B, S]}
+                   (the labels only for `loss_fn`)
   encdec           {"feats"|"tokens": encoder input, "dec_tokens": [B, S]}
 Decode: a token [B, 1] plus per-layer caches (a list of dicts with "attn"
 {"k", "v"}, "ssm" {"state", "conv"}, "cross_k"/"cross_v", where JAX stacks
@@ -32,8 +37,11 @@ them) and an integer position.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -44,9 +52,9 @@ from .quant import dequantize_params, is_quantized_leaf
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as modules and parameters: a dict becomes a
-    child module, a list an `nn.ModuleList`, a tensor a parameter (no
-    gradient: the port serves, it does not train). Modules and parameters
-    passed in are shared, not copied."""
+    child module, a list an `nn.ModuleList`, a tensor a parameter, built
+    without a gradient (serving; `trainable` turns gradients on). Modules
+    and parameters passed in are shared, not copied."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -67,6 +75,19 @@ class ParamTree(nn.Module):
 
 def params_device(params: nn.Module) -> torch.device:
     return next(params.parameters()).device
+
+
+def trainable(params: ParamTree) -> dict[str, nn.Parameter]:
+    """Turn gradients on for every leaf and return the leaves by name.
+    int8 leaves are not trained: the reference's `jax.value_and_grad`
+    refuses them, and so does this, with a ValueError."""
+    if any(is_quantized_leaf(m) for m in params.modules()):
+        raise ValueError("trainable: the model holds int8 leaves (quantize_params); "
+                         "train the float model and quantize it for serving")
+    leaves = dict(params.named_parameters())
+    for p in leaves.values():
+        p.requires_grad_(True)
+    return leaves
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +251,15 @@ def _layers(blocks, cfg: ModelConfig):
 
 def stack_full(blocks, x, cfg: ModelConfig, kind: str, *, causal=True, memory=None,
                want_cache=False, total_len=0):
-    """Every layer in order; with `want_cache` also the per-layer caches."""
+    """Every layer in order; with `want_cache` also the per-layer caches.
+    With `cfg.remat`, under autograd and without caches (JAX's prefill
+    passes remat=False), each layer is checkpointed: its activations are
+    recomputed in the backward pass instead of kept."""
+    if cfg.remat and not want_cache and torch.is_grad_enabled():
+        for p_layer in _layers(blocks, cfg):
+            x, _ = checkpoint(_block_full, p_layer, x, cfg, kind, causal=causal, memory=memory,
+                              use_reentrant=False)
+        return x, None
     caches = []
     for p_layer in _layers(blocks, cfg):
         x, cache = _block_full(p_layer, x, cfg, kind, causal=causal,
@@ -308,6 +337,50 @@ def forward(cfg: ModelConfig, params, batch) -> torch.Tensor:
 
 def logits_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return L.unembed(params.embed, forward(cfg, params, batch), cfg)
+
+
+def _targets(cfg: ModelConfig, batch) -> torch.Tensor:
+    if cfg.family == "encdec":
+        return batch["dec_tokens"][:, 1:]
+    if cfg.frontend != "none":
+        return batch["labels"][:, 1:]
+    return batch["tokens"][:, 1:]
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Mean next-token cross entropy (fp32 logsumexp, optional vocab
+    chunking: a memory knob for the huge-vocab archs)."""
+    h = forward(cfg, params, batch)[:, :-1]
+    targets = _targets(cfg, batch)
+    if cfg.vocab_chunking:
+        return _chunked_ce(cfg, params.embed, h, targets)
+    logits = L.unembed(params.embed, h, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - tl)
+
+
+def _chunked_ce(cfg: ModelConfig, embed, h, targets) -> torch.Tensor:
+    """Cross entropy without materializing [B, S, V] logits: streams over
+    vocab chunks keeping a running logsumexp + the target logit."""
+    v, nch = cfg.vocab, cfg.vocab_chunking
+    csize = math.ceil(v / nch)
+    cd = L.dtype_of(cfg.compute_dtype)
+    b, s, _ = h.shape
+    t = targets.long()
+    lse = torch.full((b, s), -math.inf, dtype=torch.float32, device=h.device)
+    tl = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    for c in range(nch):
+        lo = c * csize
+        hi = min(v, lo + csize)
+        w = embed.embed[lo:hi].T if cfg.tie_embeddings else embed.lm_head[:, lo:hi]
+        logits_c = torch.matmul(h, w.to(cd)).float()
+        lse = torch.logaddexp(lse, torch.logsumexp(logits_c, dim=-1))
+        in_chunk = (t >= lo) & (t < hi)
+        idx = torch.clamp(t - lo, 0, hi - lo - 1)
+        got = torch.gather(logits_c, -1, idx[..., None])[..., 0]
+        tl = tl + torch.where(in_chunk, got, 0.0)
+    return torch.mean(lse - tl)
 
 
 def prefill(cfg: ModelConfig, params, batch, total_len: int):
