@@ -7,8 +7,8 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` or an argmin kernel spills), then runs ten phases,
-each printing JSON lines:
+`neumann_cols_kernel` or an argmin kernel spills), then runs twelve
+phases, each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Neumann rtol 1e-5 at the traffic scan's stages 0-2 for
@@ -92,9 +92,24 @@ each printing JSON lines:
      reported and left out),
      and the card against the CPU at 2 layers (rtol 1e-3, the same experts
      for every MoE token); the served families' and mixtral's 8 x 1024
-     prefills repeat bitwise.
+     prefills repeat bitwise;
+ 11. training: the flash gradient route against autograd through the
+     plain version at the training shapes; one model a family card vs CPU
+     in fp32; 30 steps of qwen1.5-0.5b at full size (8 x 1024 tokens, bf16
+     compute, remat) with checkpoints, a resume held bitwise, a card-to-CPU
+     restore and the train CLI's resume in a subprocess;
+ 12. the dry run (`python -m repro_torch.launch.dryrun`): its whole matrix
+     (10 archs x 4 shapes x 2 production meshes) runs on the host from the
+     script's start, in the background (`DryrunMatrix`, it never touches
+     the card), and every cell must be ok, or skipped exactly where
+     `shape_applicable` says (66 ok, 14 skipped); then one train (phase
+     11's shape), prefill (2 x 32768) and decode (8 x 32768 cache) step of
+     qwen1.5-0.5b on the one-device mesh against the same step on the
+     card: FLOPs equal exactly (FlopCounterMode with the flash op's
+     formula), the dry run's peak within 15% of max_memory_allocated,
+     every flash launch counted and wgmma.
 
-Kernel launches are counted only while the main paths run (phases 2-10),
+Kernel launches are counted only while the main paths run (phases 2-12),
 by kernel and by variant; every kernel must have launched there, every
 phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
 of more than one CTA, and every phase-5 and phase-10 bf16 flash launch
@@ -2570,6 +2585,200 @@ def phase11(counter) -> dict:
     return {"flash_grad_rows": grad_rows, "train": result}
 
 
+# Phase 12: the dry run. Its whole matrix runs on the host in the
+# background from the start (it never touches the card), over this many
+# processes, one (arch, mesh) unit at a time, the slowest first.
+DRYRUN_DIR = ROOT / "build" / "phase12_dryrun"
+DRYRUN_WORKERS = 4
+DRYRUN_SLOW_FIRST = ("mixtral-8x22b", "mamba2-370m", "qwen2-moe-a2.7b", "internvl2-76b", "hymba-1.5b",
+                     "command-r-plus-104b")
+DRYRUN_ARCH = "qwen1.5-0.5b"
+PEAK_RTOL = 0.15  # the dry run's peak against max_memory_allocated over the same step
+# (kind, sequence length, batch) of the steps held against the card: phase
+# 11's train shape, and a prefill and a decode at 32k that one card holds.
+DRYRUN_STEPS = (("train", 1024, 8), ("prefill", 32_768, 2), ("decode", 32_768, 8))
+
+
+class DryrunMatrix:
+    """`python -m repro_torch.launch.dryrun --arch A [--multi-pod]` for every
+    arch and both production meshes, in `DRYRUN_WORKERS` processes at low
+    priority, records into `DRYRUN_DIR`. `stop` kills what still runs."""
+
+    def __init__(self, archs):
+        import os
+        import shutil
+        import threading
+
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+        DRYRUN_DIR.mkdir(parents=True)
+        slow = [a for a in DRYRUN_SLOW_FIRST if a in archs]
+        self.units = [(a, mp) for a in slow + [a for a in archs if a not in slow] for mp in (True, False)]
+        self.procs, self.rcs = [], {}
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        self._lock = threading.Lock()
+        self._stopped = False
+        self.t0 = time.perf_counter()
+        self.wall_s = None
+        self.error = None
+        self._thread = threading.Thread(target=self._schedule, daemon=True)
+        self._thread.start()
+
+    def _run(self, arch, multi_pod):
+        import os
+
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--out-dir", str(DRYRUN_DIR)]
+        log = DRYRUN_DIR / f"{arch}{'-multipod' if multi_pod else ''}.log"
+        with self._lock:
+            if self._stopped:
+                return
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd + (["--multi-pod"] if multi_pod else []), stdout=f,
+                                        stderr=subprocess.STDOUT, env=self.env, cwd=ROOT)
+            self.procs.append(proc)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 10)  # below the phases that drive the card
+        self.rcs[(arch, multi_pod)] = proc.wait()
+
+    def _schedule(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        try:
+            with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+                list(pool.map(lambda u: self._run(*u), self.units))
+        except Exception as e:  # read by `join`, in the main thread
+            self.error = e
+        self.wall_s = time.perf_counter() - self.t0
+
+    def join(self) -> float:
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError("phase 12: the dry-run matrix could not run") from self.error
+        return self.wall_s
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def phase12_matrix(matrix) -> None:
+    """Every cell of the dry run's matrix ok, or skipped exactly where
+    `shape_applicable` says."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.config import SHAPES, shape_applicable
+
+    wall_s = matrix.join()
+    bad_rc = {f"{a}{' --multi-pod' if mp else ''}": rc for (a, mp), rc in matrix.rcs.items() if rc != 0}
+    recs = {(r["arch"], r["shape"], r["mesh"]): r
+            for r in (json.loads(f.read_text()) for f in DRYRUN_DIR.glob("*.json"))}
+    cells, wrong = {}, []
+    for arch in ARCHS:
+        for shape in SHAPES:
+            want = "ok" if shape_applicable(get_config(arch), SHAPES[shape])[0] else "skipped"
+            for mesh in ("16x16", "2x16x16"):
+                r = recs.get((arch, shape, mesh), {"status": "missing"})
+                if r["status"] != want:
+                    wrong.append((arch, shape, mesh, r["status"], r.get("error", "")[:200]))
+                if r["status"] == "ok":
+                    cells[f"{arch}/{shape}/{mesh}"] = [r["flops"], r["per_device_argument_gib"]]
+    counts = {k: sum(r["status"] == k for r in recs.values()) for k in ("ok", "skipped", "error")}
+    n_ok = 2 * sum(shape_applicable(get_config(a), s)[0] for a in ARCHS for s in SHAPES.values())
+    want_counts = {"ok": n_ok, "skipped": 2 * len(ARCHS) * len(SHAPES) - n_ok, "error": 0}
+    emit({"phase": 12, "name": "dryrun_matrix", "wall_s": wall_s, "processes": DRYRUN_WORKERS, **counts,
+          "trace_s_total": sum(r.get("trace_s", 0.0) for r in recs.values()),
+          "cells_flops_gib_per_device": cells})
+    if bad_rc or wrong or counts != want_counts:
+        raise AssertionError(f"phase 12: dry-run matrix {counts}, exit codes {bad_rc}, cells {wrong[:5]}")
+
+
+def phase12_step(counter, shape) -> None:
+    """One step of the dry run on the one-device mesh against the same step
+    run on the card: FLOPs equal (FlopCounterMode with the flash op's
+    formula on the card), the predicted peak within PEAK_RTOL of
+    max_memory_allocated, every flash launch counted, wgmma in bf16."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.optim import adamw_init
+
+    mesh = make_debug_mesh(n_devices=1, model=1)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(DRYRUN_ARCH, shape, mesh=mesh, save=False)
+    dry_s = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 12: dry run of {shape.name}: {rec.get('error')}")
+    step, _, _ = dryrun.build_cell(DRYRUN_ARCH, shape, mesh, ShardingRules())
+    cfg = get_config(DRYRUN_ARCH)
+    cfg = cfg if shape.kind == "train" else St.serve_config(cfg)
+    free_device()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab, (shape.global_batch, 1 if shape.kind == "decode" else shape.seq_len),
+                           dtype=torch.int32, device="cuda", generator=gen)
+    params = init_params(cfg, 12, device="cuda")
+    if shape.kind == "train":
+        args = (params, adamw_init(params), {"tokens": tokens})
+    elif shape.kind == "prefill":
+        args = (params, {"tokens": tokens})
+    else:
+        args = (params, init_caches(cfg, shape.global_batch, shape.seq_len, device="cuda"), tokens,
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        with FlopCounterMode(display=False) as fc:
+            out = step(*args)
+        return fc.get_total_flops(), out
+
+    t0 = time.perf_counter()
+    flops, out = counter.run(run)
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (
+        [out[2]["loss"]] if shape.kind == "train" else [out[1] if shape.kind == "prefill" else out[0]]))
+    launches, variants = counter.last["flash_attention"], counter.last_variants["flash_attention"]
+    want_launches = {"train": 2 * cfg.n_layers, "prefill": cfg.n_layers, "decode": 0}[shape.kind]
+    del args, out, params
+    free_device()
+    row = {"phase": 12, "step": shape.kind, "shape": f"B={shape.global_batch} S={shape.seq_len}",
+           "dryrun_flops": rec["flops"], "card_flops": flops, "dryrun_peak_bytes": rec["peak_bytes"],
+           "card_peak_bytes": peak, "peak_ratio": rec["peak_bytes"] / peak,
+           "argument_bytes": rec["memory"]["argument_bytes"], "temp_bytes": rec["memory"]["temp_bytes"],
+           "flash_launches": launches, "flash_variants": variants, "dryrun_s": dry_s, "card_step_s": step_s,
+           "finite": finite}
+    emit(row)
+    checks = {
+        "flops equal": flops == rec["flops"],
+        "peak within 15%": abs(rec["peak_bytes"] - peak) <= PEAK_RTOL * peak,
+        "flash launches": launches == want_launches and set(variants) <= {"wgmma"},
+        "finite": finite,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 12 {shape.kind}: {[k for k, v in checks.items() if not v]} {row}")
+
+
+def phase12(counter, matrix) -> None:
+    """The dry run (module doc): its matrix on the host, then one train,
+    prefill and decode step of qwen1.5-0.5b against the card."""
+    from repro_torch.models.config import ShapeConfig
+
+    t0 = time.perf_counter()
+    phase12_matrix(matrix)
+    t1 = time.perf_counter()
+    for kind, seq, batch in DRYRUN_STEPS:
+        phase12_step(counter, ShapeConfig(f"{kind}_{batch}x{seq}", kind, seq, batch))
+    emit({"phase": 12, "name": "dryrun", "wall_s": time.perf_counter() - t0, "matrix_wait_s": t1 - t0,
+          "steps_s": time.perf_counter() - t1})
+
+
 def main() -> int:
     import torch
 
@@ -2581,6 +2790,16 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCHS
+
+    matrix = DryrunMatrix(ARCHS)
+    try:
+        return run_phases(torch, matrix)
+    finally:
+        matrix.stop()
+
+
+def run_phases(torch, matrix) -> int:
     from repro_torch import core
     from repro_torch.core import alt, scenarios as scen
     from repro_torch import fleet
@@ -2638,6 +2857,7 @@ def main() -> int:
     phase9(counter)
     phase10(counter)
     trained = phase11(counter)
+    phase12(counter, matrix)
     summary["flash_attention"]["backward"] = {
         "route": "plain (recompute under autograd, kernels/flash_attention/ops.py::flash_attention_backward)",
         "rows": trained["flash_grad_rows"],

@@ -1,0 +1,215 @@
+"""Sharding rules: parameter, batch and decode-cache partition specs over a
+("data", "model"[, "pod"]) mesh (the substrate half of the JAX package's
+`distributed/sharding.py`, its rules as they stand).
+
+A partition spec here is a tuple with one entry per tensor dim, as JAX's
+`PartitionSpec` lists them: a mesh-axis name, None (replicated), or a tuple
+of names for a dim split over several axes; trailing dims left out are
+replicated, and () replicates the whole tensor. A mesh is
+`launch.mesh.MeshShape` (axis names and sizes, no devices).
+
+Baseline layout of the reference:
+  * TP over "model" on the natural tensor-parallel dim of every matmul
+    (attention heads, FFN hidden, experts, vocab);
+  * FSDP over "data" on the other large dim (params and Adam moments fully
+    sharded);
+  * batch over ("pod", "data"); the pod axis is pure data parallelism;
+  * decode KV caches: batch over ("pod", "data"), sequence over "model".
+A dim is only given a mesh axis when the axis size divides it.
+
+The port keeps one module a layer where JAX stacks the layers on axis 0
+(`models/convert.py`). `param_pspecs` and `cache_pspecs` therefore run
+JAX's rule on the stacked shape ([L] + the layer's shape, where the rule
+never shards L) and return its spec without the leading layer entry.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from torch import nn
+
+from ..models.config import ModelConfig
+from ..models.quant import STACKED
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pod_axis: str | None = None  # set when the mesh has a pod dimension
+    fsdp: bool = True  # shard the non-TP dim of params over data
+    # Decode-cache layout: "seq" shards the KV sequence dim over model,
+    # "heads" shards KV heads (falls back to seq when kv % axis != 0).
+    cache_layout: str = "seq"
+    # Sequence-parallel residual stream (an activation constraint of the
+    # reference's act.py, which waits for the mesh slice).
+    seq_shard_residual: bool = False
+    # 2D ("data"+"model") tensor parallelism for serving (hillclimb option).
+    serve_2d_tp: bool = False
+
+
+def _axis_size(mesh, name: str | None) -> int:
+    if name is None:
+        return 1
+    return mesh.shape[name]
+
+
+def _maybe(mesh, dim_size, axis):
+    """Assign `axis` to a dim only when it divides evenly."""
+    if axis is None:
+        return None
+    return axis if dim_size % _axis_size(mesh, axis) == 0 else None
+
+
+def batch_pspec(rules: ShardingRules) -> tuple:
+    if rules.pod_axis:
+        return ((rules.pod_axis, rules.data_axis),)
+    return (rules.data_axis,)
+
+
+def batch_axes_size(mesh, rules: ShardingRules) -> int:
+    n = _axis_size(mesh, rules.data_axis)
+    if rules.pod_axis:
+        n *= _axis_size(mesh, rules.pod_axis)
+    return n
+
+
+def batch_pspec_for(mesh, rules: ShardingRules, batch: int) -> tuple:
+    """Replicate when the global batch doesn't divide the DP axes (e.g. the
+    batch=1 long-context decode cell)."""
+    if batch % batch_axes_size(mesh, rules) == 0:
+        return batch_pspec(rules)
+    return ()
+
+
+def _param_rule(path: str, shape, mesh, rules: ShardingRules, cfg: ModelConfig) -> tuple:
+    """JAX's rule for the leaf at `path` ("blocks/attn/wq") of JAX's
+    (stacked) `shape`."""
+    if path.endswith("/__s"):
+        return ()  # per-tensor quantization scale: replicated scalar
+    if path.endswith("/__q"):
+        path = path[: -len("/__q")]  # int8 payload shards like its parent
+    d_ax = rules.data_axis if rules.fsdp else None
+    m_ax = rules.model_axis
+    dims = len(shape)
+
+    def spec(*axes):
+        return tuple(axes) + (None,) * (dims - len(axes))
+
+    # ---- embedding / head ----
+    if path.endswith("embed/embed"):
+        return spec(_maybe(mesh, shape[0], m_ax), _maybe(mesh, shape[1], d_ax))
+    if path.endswith("embed/lm_head"):
+        return spec(_maybe(mesh, shape[0], d_ax), _maybe(mesh, shape[1], m_ax))
+    if path.endswith("embed/frontend_proj"):
+        return spec(None, _maybe(mesh, shape[1], m_ax))
+
+    # ---- attention (leading stacked-layer dim) ----
+    if "/attn/" in path or "/self_attn/" in path or "/cross_attn/" in path:
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "wq":  # [L, d, H, hd]
+            h_ax = _maybe(mesh, shape[2], m_ax)
+            return spec(None, _maybe(mesh, shape[1], d_ax), h_ax)
+        if leaf in ("wk", "wv"):  # [L, d, Kv, hd]
+            kv_ax = _maybe(mesh, shape[2], m_ax)
+            if kv_ax is None:
+                # few KV heads: row-parallel on d instead (psum after)
+                return spec(None, _maybe(mesh, shape[1], m_ax), None)
+            return spec(None, _maybe(mesh, shape[1], d_ax), kv_ax)
+        if leaf == "wo":  # [L, H, hd, d]
+            return spec(None, _maybe(mesh, shape[1], m_ax), None, _maybe(mesh, shape[3], d_ax))
+        if leaf == "bq":  # [L, H, hd]
+            return spec(None, _maybe(mesh, shape[1], m_ax))
+        if leaf in ("bk", "bv"):
+            return spec(None, _maybe(mesh, shape[1], m_ax))
+
+    # ---- dense / shared MLP ----
+    if path.rsplit("/", 1)[-1] in ("wi", "wg") and "/mlp" in path or "/shared/" in path and path.endswith(("wi", "wg")):
+        return spec(None, _maybe(mesh, shape[1], d_ax), _maybe(mesh, shape[2], m_ax)) if dims == 3 else ()
+    if path.endswith("/mlp/wo") or path.endswith("/shared/wo"):
+        return spec(None, _maybe(mesh, shape[1], m_ax), _maybe(mesh, shape[2], d_ax))
+
+    # ---- MoE ----
+    if path.endswith("/moe/router"):
+        return spec(None, _maybe(mesh, shape[1], d_ax), None)
+    if path.endswith(("/moe/wi_e", "/moe/wg_e")):  # [L, E, d, ff]
+        e_ax = _maybe(mesh, shape[1], m_ax)
+        if e_ax is not None:
+            return spec(None, e_ax, _maybe(mesh, shape[2], d_ax), None)
+        return spec(None, None, _maybe(mesh, shape[2], d_ax), _maybe(mesh, shape[3], m_ax))
+    if path.endswith("/moe/wo_e"):  # [L, E, ff, d]
+        e_ax = _maybe(mesh, shape[1], m_ax)
+        if e_ax is not None:
+            return spec(None, e_ax, None, _maybe(mesh, shape[3], d_ax))
+        return spec(None, None, _maybe(mesh, shape[2], m_ax), _maybe(mesh, shape[3], d_ax))
+    if path.endswith("/moe/shared_gate"):
+        return spec(None, _maybe(mesh, shape[1], d_ax), None)
+
+    # ---- SSM ----
+    if path.endswith("/ssm/in_proj"):  # [L, d, K]
+        return spec(None, _maybe(mesh, shape[1], m_ax), None)
+    if path.endswith("/ssm/out_proj"):  # [L, din, d]
+        return spec(None, _maybe(mesh, shape[1], m_ax), None)
+    if path.endswith("/ssm/conv_w") or path.endswith("/ssm/conv_b"):
+        return ()
+
+    # norms / scalars / small vectors: replicated
+    return ()
+
+
+def _unstack(spec: tuple) -> tuple:
+    """A stacked leaf's spec without its layer entry."""
+    return spec[1:] if spec else ()
+
+
+def param_pspecs(cfg: ModelConfig, params: nn.Module, mesh, rules: ShardingRules) -> dict:
+    """{parameter name: spec} for every leaf of `params` (a `ParamTree`,
+    e.g. `launch.steps.param_specs`). A leaf of a layer stack gets the spec
+    JAX gives the stacked leaf, without the layer entry."""
+    stacks = {name: len(m) for name, m in params.named_children() if name in STACKED}
+    out = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] in stacks:
+            path = "/".join([parts[0], *parts[2:]])  # JAX's path has no layer index
+            out[name] = _unstack(_param_rule(path, (stacks[parts[0]], *p.shape), mesh, rules, cfg))
+        else:
+            out[name] = _param_rule("/".join(parts), tuple(p.shape), mesh, rules, cfg)
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, caches: list, mesh, rules: ShardingRules) -> list:
+    """Decode caches, a dict a layer: JAX's rule on the stacked leaves
+    ([L, B, Kv, C, hd] attention; [L, B, nh, hp, n] SSM states), without
+    the layer entry."""
+    nb = batch_axes_size(mesh, rules)
+    m_ax = rules.model_axis
+    n_layers = len(caches)
+
+    def b_of(dim_size):
+        if dim_size % nb != 0:
+            return None
+        return (rules.pod_axis, rules.data_axis) if rules.pod_axis else rules.data_axis
+
+    def rule(path: str, shape) -> tuple:
+        dims = len(shape)
+        if path.endswith(("attn/k", "attn/v")) or path.endswith(("cross_k", "cross_v")):
+            # [L, B, Kv, C, hd]
+            b_ax = b_of(shape[1])
+            if rules.cache_layout == "heads" and shape[2] % _axis_size(mesh, m_ax) == 0:
+                return (None, b_ax, m_ax, None, None)
+            return (None, b_ax, None, _maybe(mesh, shape[3], m_ax), None)
+        if path.endswith("ssm/state"):  # [L, B, nh, hp, n]
+            return (None, b_of(shape[1]), _maybe(mesh, shape[2], m_ax), None, None)
+        if path.endswith("ssm/conv"):  # [L, B, cw-1, conv_dim]
+            return (None, b_of(shape[1]), None, _maybe(mesh, shape[3], m_ax))
+        if dims >= 2:
+            return (None, b_of(shape[1]))
+        return ()
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+        return _unstack(rule(prefix, (n_layers, *tree.shape)))
+
+    return [walk(layer, "") for layer in caches]

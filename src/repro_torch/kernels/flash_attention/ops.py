@@ -8,22 +8,40 @@ tensors take the plain route the JAX package takes without Pallas:
 `attention_ref`, or the streaming `attention_chunked` above
 `_CHUNKED_THRESHOLD`. There is no switch and no fallback between them.
 
+The kernel is a dispatcher op, `torch.ops.repro_torch.flash_attention(q, k,
+v, causal, window, q_offset)` (`torch.library.custom_op`), so PyTorch's
+dispatch modes see it as one op:
+- its implementation is the kernel launch (`_launch`), which raises for a
+  tensor that is not on a CUDA device;
+- its fake implementation returns a tensor of q's shape, dtype and layout
+  and runs nothing, so a step traces on `meta` tensors (the dry run,
+  `launch/dryrun.py`);
+- its FLOP formula, 4 * B * H * Sq * Sk * D, is registered with
+  `torch.utils.flop_counter`: the two products of every (query, key) pair,
+  which is what both plain routes dispatch (`attention_chunked` visits
+  every chunk and skips none);
+- its autograd is registered with it (below).
+The wrapper sends CUDA and `meta` tensors to the op; a CUDA call is
+validated and its library loaded before the dispatcher sees it.
+
 Gradients. The JAX package has no backward kernel: it trains on its jnp
-path, which XLA differentiates. The CUDA route is a `torch.autograd.Function`
-(`_FlashAttention`) whose forward is the kernel launch and whose backward
-is `flash_attention_backward`, the plain backward: it recomputes the
+path, which XLA differentiates. The op's backward is
+`flash_attention_backward`, the plain backward: it recomputes the
 attention in plain PyTorch on the same device, in fp32, under autograd,
 one query chunk at a time, and returns dq, dk, dv. It differentiates the
 function the kernel computes, so a query row that sees no key has output
-0 and gradient 0. It is the backward's only route; a hand-written backward
-kernel is queued (ROADMAP.md, "Modules to port", item 7). The CPU route is
-plain PyTorch, which autograd differentiates directly.
+0 and gradient 0. The recompute adds one forward's FLOPs to every
+backward (4 * B * H * Sq * Sk * D a call) over what autograd through the
+plain route counts. It is the backward's only route; a hand-written
+backward kernel is queued (ROADMAP.md, "Modules to port", item 7). The CPU
+route is plain PyTorch, which autograd differentiates directly.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from ...obs.trace import span
@@ -45,21 +63,24 @@ def _variant(dtype: torch.dtype, d: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 256 else "cuda_core"
 
 
-def _check_tma(*ts: torch.Tensor) -> None:
+def _check_tma(*ts: torch.Tensor, check_base: bool = True) -> None:
     """The tensor-core kernel loads q, k and v by TMA: 16-byte aligned base
-    addresses and strides of whole 16-byte units in every dim of extent > 1."""
+    addresses (not checked on a tensor without data) and strides of whole
+    16-byte units in every dim of extent > 1."""
     for t in ts:
         strides = [st for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+        if (check_base and t.data_ptr() % 16) or any(st % 8 for st in strides):
             raise ValueError(
                 "flash_attention: the bf16 tensor-core kernel needs 16-byte aligned q/k/v "
                 f"and strides that are multiples of 8 elements; got strides {tuple(t.stride())}"
             )
 
 
-def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
-    """Kernel launch for CUDA tensors; validates everything it passes on."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+def _check(q, k, v, window: int | None, q_offset: int, *, on_device: bool = True) -> str:
+    """Every launch rule of the kernel; returns the variant the call takes.
+    `on_device=False` (the fake implementation) leaves out the device and
+    the base-address checks, which need data."""
+    if on_device and (q.device.type != "cuda" or k.device != q.device or v.device != q.device):
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q/k/v {q.dtype}/{k.dtype}/{v.dtype}; one of float32, bfloat16")
@@ -81,7 +102,15 @@ def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.T
         raise ValueError(f"flash_attention: q_offset {q_offset} out of range")
     variant = _variant(q.dtype, d)
     if variant == "wgmma":
-        _check_tma(q, k, v)
+        _check_tma(q, k, v, check_base=on_device)
+    return variant
+
+
+def _launch(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
+    """Kernel launch for CUDA tensors; validates everything it passes on."""
+    variant = _check(q, k, v, window, q_offset)
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
     fn = _build.load("flash_attention").flash_attention_fwd
     out = torch.empty_like(q)  # q's layout: a transposed [B, S, H, D] view stays one
     if out.numel() == 0:
@@ -141,22 +170,44 @@ def flash_attention_backward(q, k, v, do, *, causal: bool = True, window: int | 
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The CUDA route with a gradient: forward = the kernel launch,
-    backward = `flash_attention_backward` (the plain backward)."""
+@torch.library.custom_op(
+    "repro_torch::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int? window, int q_offset) -> Tensor",
+)
+def _flash_op(q, k, v, causal, window, q_offset):
+    """The kernel as a dispatcher op: the launch, for every device type (a
+    tensor that is not on a CUDA device raises in `_launch`)."""
+    return _launch(q, k, v, causal, window, q_offset)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
-        ctx.save_for_backward(q, k, v)
-        ctx.attn = (causal, window, q_offset)
-        return _launch(q, k, v, causal, window, q_offset)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        causal, window, q_offset = ctx.attn
-        dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal, window=window, q_offset=q_offset)
-        return dq, dk, dv, None, None, None
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, q_offset):
+    """q's shape, dtype and layout, after the launch rules that need no data."""
+    _check(q, k, v, window, q_offset, on_device=False)
+    return torch.empty_like(q)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, q_offset = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.attn = (causal, window, q_offset)
+
+
+def _flash_op_backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    causal, window, q_offset = ctx.attn
+    dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal, window=window, q_offset=q_offset)
+    return dq, dk, dv, None, None, None
+
+
+_flash_op.register_autograd(_flash_op_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flop(q_shape, k_shape, *args, **kwargs) -> int:
+    """4 * B * H * Sq * Sk * D: QK^T and PV over every (query, key) pair."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * sq * k_shape[2] * d
 
 
 def flash_attention(
@@ -174,6 +225,7 @@ def flash_attention(
         if q.shape[2] * k.shape[2] > _CHUNKED_THRESHOLD:
             return attention_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
         return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
-    return _launch(q, k, v, causal, window, q_offset)
+    if q.device.type != "meta":
+        _check(q, k, v, window, q_offset)
+        _build.load("flash_attention")
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, q_offset)

@@ -7,9 +7,13 @@ prefill_step: full-prompt forward building the caches + last logits
 serve_step  : one-token decode against the caches
 
 The train step runs where the parameters live; `torch.autograd.grad` takes
-the place of `jax.value_and_grad`. The dry run's input specs
-(`batch_specs`, `param_specs`, `opt_specs`, `cache_specs`) wait for their
-slice (ROADMAP.md, "Modules to port", item 6).
+the place of `jax.value_and_grad`.
+
+The input specs (`batch_specs`, `param_specs`, `opt_specs`, `cache_specs`)
+are `meta` tensors: JAX's `ShapeDtypeStruct` stand-ins, with its shapes
+and dtypes, in the port's layout (one module, or cache dict, a layer where
+JAX stacks the layers on axis 0; `models/convert.py`). The dry run
+(`launch/dryrun.py`) runs the steps on them.
 """
 from __future__ import annotations
 
@@ -18,10 +22,59 @@ import dataclasses
 import torch
 
 from ..models import model as M
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, ShapeConfig
+from ..models.quant import quantize_params
 from ..optim import adamw_update, clip_by_global_norm
 
+_META = torch.device("meta")
 
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no data)
+# ---------------------------------------------------------------------------
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The batch of a step of `shape`: int32 tokens, or bf16 features with
+    int32 labels (frontend archs) or decoder tokens (encoder-decoder); one
+    int32 token a sequence for decode (its cache is separate state)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=_META)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            return {"feats": spec(b, s, cfg.frontend_dim, dtype=torch.bfloat16), "dec_tokens": spec(b, s)}
+        if cfg.frontend != "none":
+            return {"feats": spec(b, s, cfg.frontend_dim, dtype=torch.bfloat16), "labels": spec(b, s)}
+        return {"tokens": spec(b, s)}
+    return {"token": spec(b, 1)}
+
+
+def param_specs(cfg: ModelConfig) -> M.ParamTree:
+    """The model on `meta` (int8 leaves when `cfg.quantize_int8`)."""
+    params = M.init_params(cfg, device=_META)
+    return quantize_params(params) if cfg.quantize_int8 else params
+
+
+def opt_specs(cfg: ModelConfig) -> dict:
+    """AdamW state on `meta`: fp32 moments keyed by parameter name and the
+    int32 step, as `adamw_init` builds it."""
+    named = dict(param_specs(cfg).named_parameters())
+
+    def zeros():
+        return {n: torch.empty(p.shape, dtype=torch.float32, device=_META) for n, p in named.items()}
+
+    return {"mu": zeros(), "nu": zeros(), "step": torch.empty((), dtype=torch.int32, device=_META)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> list:
+    """The decode caches of `shape` on `meta` (a dict a layer)."""
+    return M.init_caches(cfg, shape.global_batch, shape.seq_len, device=_META)
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
 def value_and_grad(cfg: ModelConfig, params: M.ParamTree, batch: dict):
     """(loss, {name: gradient}) of `loss_fn` at `params`; a leaf the loss
     does not reach gets a zero gradient, as in JAX."""

@@ -42,13 +42,22 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
-def _dense_init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
+class MetaDraws:
+    """Stands in for the generator when parameters are built on `meta`
+    (shapes and dtypes only, for the dry run's specs): it names the device
+    and nothing is drawn."""
+
+    device = torch.device("meta")
+
+
+def _dense_init(gen: torch.Generator | MetaDraws, shape, dtype, scale=None) -> torch.Tensor:
     """Truncated normal in [-2, 2] times std (fan-in rule unless `scale`),
     drawn in fp32 on the generator's device, then cast to `dtype`."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not isinstance(gen, MetaDraws):
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)
 
 

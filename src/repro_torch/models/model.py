@@ -9,8 +9,7 @@ stub modality frontend (`frontend_proj` on precomputed features).
 Interleaved hybrids (`hybrid_attn_period >= 1`) are profile-only, as in
 the reference: `init_params` raises its ValueError. `loss_fn` is the
 training loss (next-token cross entropy, optionally streamed over vocab
-chunks by `_chunked_ce`); the dry run's `param_specs` waits for its slice
-(ROADMAP.md, "Modules to port", item 6).
+chunks by `_chunked_ce`).
 
 Parameters live in a `ParamTree`, an `nn.Module` whose names follow the
 JAX leaves: `embed.embed` (+ `embed.lm_head` when untied,
@@ -21,7 +20,10 @@ scans over them, the port keeps one child module per layer and loops;
 int8 leaves (`quant.py`) are dequantized one layer at a time inside the
 loops, as in JAX's scan bodies. The functions run on the device the
 parameters live on; `init_params` takes `device=` (default "cuda", which
-raises without a GPU). Parameters are built without gradients (serving);
+raises without a GPU). `init_params` and `init_caches` also build on
+`meta`: the same shapes and dtypes with no data and nothing drawn, for the
+dry run's specs (`launch/steps.py`); every entry point that computes takes
+"cuda" or "cpu" only. Parameters are built without gradients (serving);
 `trainable` turns them on for training. With `cfg.remat`, a forward under
 autograd checkpoints each layer (`torch.utils.checkpoint`, non-reentrant):
 the counterpart of JAX's `jax.checkpoint` around each scanned layer.
@@ -279,12 +281,19 @@ def _stack_decode(blocks, caches, x, pos: int, cfg: ModelConfig, kind: str):
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
+def _build_device(device) -> torch.device:
+    """`meta` as it is (shapes only); any other device as an entry point
+    resolves it."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> ParamTree:
     """Random parameters from a `torch.Generator` seeded with `seed`, drawn
     on `device` with JAX's distributions (truncated normal, fan-in stds);
     the numbers differ from JAX's for the same seed. Float leaves, also
     with `quantize_int8` set, as in JAX: `quant.quantize_params` makes the
-    int8 tree."""
+    int8 tree. On `meta` nothing is drawn (`layers.MetaDraws`)."""
     if cfg.family == "hybrid" and cfg.hybrid_attn_period >= 1:
         raise ValueError(
             f"init_params: {cfg.name!r} declares an interleaved hybrid "
@@ -293,8 +302,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> ParamTree:
             "blocks (attention + SSM every layer); interleaved configs are "
             "profile-only — see partition/profile.py"
         )
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = _build_device(device)
+    gen = L.MetaDraws() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     tree = {"embed": L.init_embed(gen, cfg), "final_norm": L.init_norm(cfg.d_model, dev)}
     kind = _block_kind(cfg)
     tree["blocks"] = [_init_block(gen, cfg, kind) for _ in range(cfg.n_layers)]
@@ -397,8 +406,8 @@ def prefill(cfg: ModelConfig, params, batch, total_len: int):
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda") -> list:
-    """Zero caches for decode-from-scratch."""
-    dev = resolve_device(device)
+    """Zero caches for decode-from-scratch (on `meta`: their shapes)."""
+    dev = _build_device(device)
     kind = "dec" if cfg.family == "encdec" else _block_kind(cfg)
     n_layers = cfg.n_dec_layers if cfg.family == "encdec" else cfg.n_layers
 

@@ -5,6 +5,11 @@ paths (`net.adj`, `apps.L`, `cost.rho_max`, `x`, `phi`, ...) through
 `np.asarray`; `repro_torch`'s `Problem.from_numpy` / `State.from_numpy`
 take the same dict and `to_numpy()` gives it back. Only the tests import
 both packages; data crosses between them as numpy arrays.
+
+Importing this module pins PyTorch to one CPU thread. The test run starts
+several worker processes on one machine, and each would otherwise take a
+thread per core, so the workers would oversubscribe the cores many times
+over. Every `tests/test_torch_*.py` imports it for that reason.
 """
 from __future__ import annotations
 
@@ -12,9 +17,12 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.core import structs as jstructs
 from repro_torch.core import structs as tstructs
+
+torch.set_num_threads(1)
 
 
 def _flatten(obj, prefix=""):

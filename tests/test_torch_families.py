@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from _torch_families import BF16_TOL, FP32_TOL, check_executor, check_logits_prefill_decode
 from repro.configs import reduced_config as j_reduced
 from repro.models import init_params as j_init_params

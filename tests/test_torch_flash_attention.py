@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_chunked as j_chunked
 from repro.kernels.flash_attention.ref import attention_ref as j_ref

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro.kernels.minplus import apsp as j_apsp
 from repro.kernels.minplus import apsp_with_nexthop as j_apsp_nh
 from repro.kernels.minplus.kernel import minplus_matmul_argmin_pallas

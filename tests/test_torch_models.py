@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro import models as jm
 from repro.configs import ZOO as J_ZOO
 from repro.configs import get_config as j_get

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from _torch_families import (
     BF16_TOL,
     FP32_TOL,

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro.kernels.neumann import lu_solve_ref as j_lu
 from repro.kernels.neumann.kernel import neumann_solve_pallas
 from repro_torch.core import (

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro.obs import metrics as j_metrics
 from repro.obs.validate import validate_lines
 from repro_torch.obs import metrics as t_metrics

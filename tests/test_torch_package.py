@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 import repro_torch
 from repro_torch.configs import reduced_config
 from repro_torch import fleet
@@ -44,7 +45,7 @@ def test_cpu_solve_imports_neither_jax_nor_repro():
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -63,7 +64,7 @@ def test_cpu_serve_cli_imports_neither_jax_nor_repro():
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -16,6 +16,7 @@ import json
 import numpy as np
 import pytest
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro.configs import ZOO as J_ZOO
 from repro.configs import get_config as j_config
 from repro.launch import pareto as j_cli

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from _torch_families import FP32_TOL, batch, configs, j_decode, j_logits, j_prefill, jb, pair, tb, to_np, tokens
 from repro.models import quant as j_quant
 from repro_torch.configs import reduced_config

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro import models as jm
 from repro.configs import reduced_config as j_reduced
 from repro.launch import serve as j_serve

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from _torch_families import batch, configs, jb, tb, tokens
 from repro import models as jm
 from repro.checkpoint import CheckpointManager as JCheckpointManager
@@ -319,9 +320,10 @@ def test_flash_backward_matches_jax_vjp(case, monkeypatch):
 
 
 def test_flash_autograd_function_is_kernel_forward_plain_backward(monkeypatch):
-    """The CUDA route's autograd.Function on CPU tensors, with the kernel
-    launch stood in by the streaming recurrence (the kernel's plain
-    version): its forward is the launch, unchanged, and its gradients are
+    """The CUDA route's dispatcher op (`torch.ops.repro_torch.flash_attention`)
+    on CPU tensors, with the kernel launch stood in by the streaming
+    recurrence (the kernel's plain version): its forward is the launch,
+    unchanged, and the gradients of its registered autograd are
     `flash_attention_backward`'s, which equal autograd through the
     recurrence."""
     case = BWD_CASES[1]
@@ -335,7 +337,7 @@ def test_flash_autograd_function_is_kernel_forward_plain_backward(monkeypatch):
     monkeypatch.setattr(fa_ops, "_launch", fake_launch)
     arrs = [torch.from_numpy(a) for a in _bwd_inputs(case, seed=3)]
     q, k, v = (t.clone().requires_grad_() for t in arrs[:3])
-    out = fa_ops._FlashAttention.apply(q, k, v, causal, window, q_offset)
+    out = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, q_offset)
     assert calls == [(causal, window, q_offset)]
     assert torch.equal(out, fake_launch(*arrs[:3], causal, window, q_offset))
     out.backward(arrs[3])

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_bridge  # noqa: F401  (pins torch to one CPU thread)
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import reduced_config
 from repro_torch.data import DataConfig, make_pipeline
@@ -28,7 +29,7 @@ from repro_torch.models.convert import opt_state_from_jax
 from repro_torch.optim import adamw_init
 
 ROOT = Path(__file__).resolve().parents[1]
-ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
 BASE = ["--arch", "qwen1.5-0.5b", "--reduced", "--global-batch", "4", "--seq-len", "64",
         "--ckpt-every", "4", "--log-every", "2", "--device", "cpu"]
 
