@@ -7,7 +7,7 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` or an argmin kernel spills), then runs twelve
+`neumann_cols_kernel` or an argmin kernel spills), then runs thirteen
 phases, each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
@@ -107,9 +107,25 @@ phases, each printing JSON lines:
      qwen1.5-0.5b on the one-device mesh against the same step on the
      card: FLOPs equal exactly (FlopCounterMode with the flash op's
      formula), the dry run's peak within 15% of max_memory_allocated,
-     every flash launch counted and wgmma.
+     every flash launch counted and wgmma;
+ 13. the mesh slice: (a) the two examples (`repro_torch.examples.quickstart`
+     and `.edge_serving`) on the card against the same functions on the
+     CPU (J, the straggler's re-solved and stale J and the wire bytes at
+     rtol 1e-5, the partitioned logits within the example's 1e-2 of the
+     monolithic ones), with every solver kernel and the flash kernel
+     launched; (b) phase 7's fleet through `solve_fleet(shard=True)` over
+     a one-rank NCCL group: the "single-device" plan with J bitwise phase
+     7's, `make_fleet_mesh(2)` refused on the one GPU, and the cost of the
+     round loop's exit flag as an all_reduce over that group; (c) one
+     full-width qwen1.5-0.5b decoder layer (bf16) as the stage of
+     `pipeline_apply` over that group, 4 microbatches of 2 x 1024 tokens,
+     bitwise the layer applied to each microbatch, every flash launch
+     wgmma; (d) the CPU tests' 4-rank gloo runs (`tests/_torch_ranks.py`:
+     the sharded fleet and control loop, the GPipe schedule) on this
+     host's CPU, every check held and the numbers within 1e-5 of the
+     committed reference (`tests/torch_ranks_reference.json`).
 
-Kernel launches are counted only while the main paths run (phases 2-12),
+Kernel launches are counted only while the main paths run (phases 2-13),
 by kernel and by variant; every kernel must have launched there, every
 phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
 of more than one CTA, and every phase-5 and phase-10 bf16 flash launch
@@ -673,6 +689,9 @@ def phase1_flash():
         ("seamless cross Sq=16", 8, 16, 16, 16, 1024, 64, False, None, 0, bf16, True),
         ("seamless cross Sq=1", 8, 16, 16, 1, 1024, 64, False, None, 0, bf16, True),
         ("qwen2-moe D=128", 8, 16, 16, 1024, 1024, 128, True, None, 0, bf16, True),
+        # Phase 13's edge_serving data plane: reduced qwen1.5-0.5b, one
+        # 64-token request, D=32 padded to 64 in the wgmma kernel.
+        ("edge_serving D=32", 1, 4, 2, 64, 64, 32, True, None, 0, bf16, True),
     ]
     main_path = list(cases)
     for dt in (fp32, bf16):
@@ -1186,7 +1205,7 @@ def phase7(core, counter, problems):
     })
     del res, blocked, untraced, chunked, stacked, state
     torch.cuda.empty_cache()
-    return vs_plain["max_abs_err"]
+    return vs_plain["max_abs_err"], J
 
 
 # Phase 8: run_control's CLI defaults over phase 7's fleet, with both
@@ -2779,6 +2798,265 @@ def phase12(counter, matrix) -> None:
           "steps_s": time.perf_counter() - t1})
 
 
+# Phase 13: the examples on the card against the CPU, the fleet and the
+# GPipe schedule over a one-rank NCCL group, and the 4-rank gloo runs of the
+# CPU tests on this host.
+PIPE_M, PIPE_B, PIPE_S = 4, 2, 1024  # microbatches of PIPE_B x PIPE_S tokens
+EXAMPLE_RTOL = 1e-5
+
+
+def quiet(fn):
+    """`fn()` with its standard output kept out of the log."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def rel_err(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def phase13_examples(counter) -> dict:
+    """(a) Both examples on the card against the same functions on the CPU."""
+    from repro_torch.examples import edge_serving, quickstart
+
+    out = {}
+    launches = {}
+    for name, mod in (("quickstart", quickstart), ("edge_serving", edge_serving)):
+        t0 = time.perf_counter()
+        card = counter.run(lambda mod=mod: quiet(lambda: mod.main("cuda")))
+        t1 = time.perf_counter()
+        cpu = quiet(lambda mod=mod: mod.main("cpu"))
+        launches[name] = dict(counter.last)
+        out[name] = {"card_s": t1 - t0, "cpu_s": time.perf_counter() - t1, "launches": counter.last,
+                     "flash_variants": counter.last_variants["flash_attention"]}
+        if name == "quickstart":
+            errs = {m: rel_err(card["J"][m], cpu["J"][m]) for m in card["J"]}
+            errs["wire"] = rel_err(card["wire"], cpu["wire"])
+            out[name]["hosts_equal"] = bool((card["hosts"] == cpu["hosts"]).all())
+        else:
+            errs = {k: rel_err(card[k], cpu[k]) for k in ("J", "J2", "stale_J")}
+            out[name]["data_plane_err"] = card["data_plane"]["err"]
+            out[name]["split_layer"] = card["data_plane"]["k"]
+            out[name]["hosts_equal"] = bool((card["hosts"] == cpu["hosts"]).all()
+                                            and (card["hosts2"] == cpu["hosts2"]).all())
+            # Both sides of the example's own check run the same kernel, so
+            # the card's logits are also held to the CPU's on the card's
+            # weights and tokens (the plain attention there).
+            out[name]["logits_vs_cpu"] = data_plane_vs_cpu(edge_serving, card)
+            if not (card["data_plane"]["err"] < 1e-2 and card["J2"] < card["stale_J"]):
+                raise AssertionError(f"phase 13: edge_serving on the card: {out[name]}")
+        out[name]["rel_err_vs_cpu"] = errs
+        if not max(errs.values()) <= EXAMPLE_RTOL:
+            raise AssertionError(f"phase 13: {name} card vs CPU: {errs}")
+    for kernel in ("neumann_cols", "neumann_rows", "minplus", "minplus_argmin", "flash_attention"):
+        if sum(by[kernel] for by in launches.values()) <= 0:
+            raise AssertionError(f"phase 13: the examples never launched {kernel}: {launches}")
+    return out
+
+
+def data_plane_vs_cpu(edge_serving, card) -> dict:
+    """The card's data-plane logits against `data_plane` on the CPU with a
+    copy of the card's weights and tokens, at FLASH_BF16_TOL (max abs; the
+    logits are below 1, bf16 compute against fp32 compute reads 0.011 on
+    the CPU)."""
+    import copy
+
+    import torch
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(edge_serving.ARCHS[0])
+    with torch.no_grad():
+        cpu = edge_serving.data_plane(cfg, copy.deepcopy(card["params"]).to("cpu"), card["tokens"].cpu(),
+                                      device="cpu")
+    got, want = card["data_plane"]["logits"].float().cpu(), cpu["logits"].float()
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or not err <= FLASH_BF16_TOL:
+        raise AssertionError(f"phase 13: edge_serving logits card vs CPU: max abs {err} > {FLASH_BF16_TOL}")
+    return {"max_abs": err, "max_logit": want.abs().max().item(), "tol": FLASH_BF16_TOL,
+            "shape": list(got.shape), "dtype": str(card["data_plane"]["logits"].dtype)}
+
+
+def phase13_fleet(counter, problems, phase7_J) -> dict:
+    """(b) Phase 7's fleet through solve_fleet(shard=True) over the one-rank
+    NCCL group: the single-device plan, J bitwise phase 7's; a mesh of two
+    ranks refused; the cost of the round loop's exit flag."""
+    import numpy as np
+    import torch
+    from repro_torch import fleet
+    from repro_torch.core.engine import _any_active
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    kw = dict(method="ALT", m_max=4, t_phi=5, round_to=8)
+    t0 = time.perf_counter()
+    res = counter.run(lambda: fleet.solve_fleet(problems, shard=True, trace=True, keep_state=True,
+                                                device="cuda", **kw))
+    wall = time.perf_counter() - t0
+    if res.shard.reason != "single-device" or res.shard.n_devices != 1:
+        raise AssertionError(f"phase 13: one-rank plan {res.shard}")
+    if not np.array_equal(res.J, phase7_J):
+        raise AssertionError("phase 13: the one-rank sharded fleet J is not bitwise phase 7's")
+    try:
+        make_fleet_mesh(2, device="cuda")
+        raise AssertionError("phase 13: make_fleet_mesh(2) on one GPU did not raise")
+    except ValueError as e:
+        refused = str(e)
+    mesh = make_fleet_mesh(device="cuda")
+    active = torch.ones(FLEET_B, dtype=torch.bool, device=problems[0].device)
+
+    def per_call_us(fn, reps=500):
+        for _ in range(20):
+            fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e6 * (time.perf_counter() - t) / reps
+
+    return {"reason": res.shard.reason, "J_bitwise_phase7": True, "rounds": res.rounds, "wall_s": wall,
+            "ms_per_round": 1e3 * wall / max(res.rounds, 1), "two_rank_mesh_refused": refused,
+            "mesh": str(mesh), "launches": counter.last,
+            "flag_allreduce_us_nccl_1rank": per_call_us(lambda: _any_active(active, mesh.get_group("fleet"))),
+            "flag_local_us": per_call_us(lambda: _any_active(active, None))}
+
+
+def phase13_pipeline(counter) -> dict:
+    """(c) One full-width qwen1.5-0.5b decoder layer (bf16) as the stage of
+    pipeline_apply over the one-rank NCCL group: bitwise the layer applied
+    to each microbatch directly, every flash launch wgmma."""
+    import dataclasses as dc
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import pipeline_apply
+    from repro_torch.distributed.sharding import _map_tensors
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import ParamTree, _block_full
+
+    cfg = dc.replace(serve_config(get_config("qwen1.5-0.5b")), n_layers=1)
+    layer = init_params(cfg, 0, device="cuda").blocks[0]
+
+    def stacked(m) -> dict:
+        out = {n: p.detach()[None] for n, p in m.named_parameters(recurse=False)}
+        out.update({n: stacked(c) for n, c in m.named_children()})
+        return out
+
+    def stage_fn(p, x):
+        return _block_full(ParamTree(p), x, cfg, "dense")[0]
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xs = torch.randn(PIPE_M, PIPE_B, PIPE_S, cfg.d_model, generator=gen, device="cuda",
+                     dtype=dtype_of(cfg.compute_dtype))
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("pod",))
+    params = stacked(layer)
+    with torch.no_grad():
+        got = counter.run(lambda: pipeline_apply(stage_fn, params, xs, mesh=mesh, axis="pod", device="cuda"))
+        variants = dict(counter.last_variants["flash_attention"])
+        want = torch.stack([_block_full(layer, xs[i], cfg, "dense")[0] for i in range(PIPE_M)])
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 13: pipeline_apply is not bitwise the layer: max err "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+        if set(variants) != {"wgmma"} or variants["wgmma"] <= 0:
+            raise AssertionError(f"phase 13: pipeline flash launches {variants}")
+        # Where a one-stage pipeline's time over the direct layer goes:
+        # `wrapped` is stage_fn on this rank's stage params without the
+        # schedule (the ParamTree wrap a call), `schedule` the schedule with
+        # an identity stage (the output buffer and its copies). Each timed in
+        # turns, twice, by CUDA events; `host_ms` is the wall time of one
+        # call to its last synchronize.
+        p0 = _map_tensors(params, lambda a: a[0])
+        runs = {
+            "direct": lambda: [_block_full(layer, xs[i], cfg, "dense")[0] for i in range(PIPE_M)],
+            "wrapped": lambda: [stage_fn(p0, xs[i]) for i in range(PIPE_M)],
+            "pipeline": lambda: pipeline_apply(stage_fn, params, xs, mesh=mesh, axis="pod", device="cuda"),
+            "schedule": lambda: pipeline_apply(lambda p, x: x, params, xs, mesh=mesh, axis="pod",
+                                               device="cuda"),
+        }
+        ms = {k: [] for k in runs}
+        host = {}
+        for _ in range(2):
+            for k, fn in runs.items():
+                ms[k].append(cuda_ms(fn, 5))
+        for k, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host[k] = 1e3 * (time.perf_counter() - t0)
+    return {"shape": [PIPE_M, PIPE_B, PIPE_S, cfg.d_model], "dtype": str(xs.dtype), "bitwise": True,
+            "flash_variants": variants, "pipeline_ms": min(ms["pipeline"]), "direct_ms": min(ms["direct"]),
+            "overhead": {"ms": ms, "host_ms": host}}
+
+
+def phase13_ranks_start(out_dir):
+    """(d) Start the CPU tests' 4-rank gloo runs on this host (fleet and
+    pipeline, one torch thread a rank); `phase13_ranks_finish` holds them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_torch_ranks", ROOT / "tests" / "_torch_ranks.py")
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return ranks, time.perf_counter(), {w: ranks.launch(w, out_dir) for w in ("fleet", "pipeline")}
+
+
+def phase13_ranks_finish(started, out_dir) -> dict:
+    ranks, t0, procs = started
+    runs = {w: ranks.finish(p, out_dir, w) for w, p in procs.items()}
+    out = {"device": "cpu", "ranks": ranks.N_RANKS, "backend": "gloo", "torch": str(runs["fleet"]["torch"]),
+           "wall_s": time.perf_counter() - t0}
+    for w, r in runs.items():
+        failed = ranks.failed_checks(r)
+        err = ranks.against_reference(w, r)
+        if failed or not all(e <= ranks.RTOL for e in err.values()):
+            raise AssertionError(f"phase 13: {w} ranks: failed checks {failed}, against the reference {err}")
+        out[w] = {"checks": sum(1 for k in r if k.startswith("check.")), "ranks_wall_s": float(r["wall_s"]),
+                  "max_rel_err_vs_reference": max(err.values())}
+    out["fleet"]["flag_allreduce_us"] = float(runs["fleet"]["flag_allreduce_us"])
+    out["pipeline"]["hop_us"] = float(runs["pipeline"]["hop_us"])
+    return out
+
+
+def phase13(counter, problems, phase7_J) -> None:
+    import torch
+    import torch.distributed as dist
+
+    t = [time.perf_counter()]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        examples = phase13_examples(counter)
+        t.append(time.perf_counter())
+        emit({"phase": 13, "part": "a", "name": "examples", "wall_s": t[1] - t[0], **examples})
+        fleet_run = phase13_fleet(counter, problems, phase7_J)
+        t.append(time.perf_counter())
+        emit({"phase": 13, "part": "b", "name": "fleet_one_rank_nccl", "wall_s": t[2] - t[1], **fleet_run})
+        pipe = phase13_pipeline(counter)
+        t.append(time.perf_counter())
+        emit({"phase": 13, "part": "c", "name": "pipeline_one_rank_nccl", "wall_s": t[3] - t[2], **pipe})
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # After the card's parts, so that the ranks have the host to themselves.
+    rank_dir = ROOT / "build" / "phase13_ranks"
+    started = phase13_ranks_start(rank_dir)
+    try:
+        host = phase13_ranks_finish(started, rank_dir)
+    finally:
+        for proc in started[2].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit({"phase": 13, "part": "d", "name": "gloo_ranks_on_host", **host})
+    emit({"phase": 13, "name": "mesh_pipeline_examples", "wall_s": time.perf_counter() - t[0]})
+
+
 def main() -> int:
     import torch
 
@@ -2850,7 +3128,7 @@ def run_phases(torch, matrix) -> int:
     phase6(counter, cfg, params)
     del params
     torch.cuda.empty_cache()
-    fleet_err = phase7(core, counter, fleet_problems)
+    fleet_err, phase7_J = phase7(core, counter, fleet_problems)
     for name, e in fleet_err.items():
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], e)
     phase8(core, counter, fleet_problems)
@@ -2858,6 +3136,7 @@ def run_phases(torch, matrix) -> int:
     phase10(counter)
     trained = phase11(counter)
     phase12(counter, matrix)
+    phase13(counter, fleet_problems, phase7_J)
     summary["flash_attention"]["backward"] = {
         "route": "plain (recompute under autograd, kernels/flash_attention/ops.py::flash_attention_backward)",
         "rows": trained["flash_grad_rows"],

@@ -8,7 +8,11 @@ forwarding sweeps, then one `round_eval` closes the round; the best
 iterate, the stall/patience counters and the per-lane freeze masks are
 updated on the device. `engine_solve` loops rounds while any lane is live
 and `m < m_max`, reading one `any(active)` scalar per round (the only host
-sync of the loop). Frozen lanes are masked out of every carry update, so
+sync of the loop). With a process `group` (the fleet mesh of
+fleet/solve.py, each rank holding its own lanes) that flag is one
+`all_reduce(MAX)` over the group a round, JAX's one collective a trip: every
+rank runs the same rounds, so `m`, the history and the trace have one
+length on every rank. Frozen lanes are masked out of every carry update, so
 extra rounds driven by live lanes leave them bit-identical, and the
 `[B, m_max + 1]` history is NaN past each lane's freeze point.
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..device import solve_device
 from .forwarding import forwarding_update
@@ -172,8 +177,17 @@ def round_step(
     )
 
 
+def _any_active(active: torch.Tensor, group) -> bool:
+    """Whether any lane is live: on this rank alone, or over `group`."""
+    if group is None:
+        return bool(active.any())
+    flag = active.any().to(torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag)
+
+
 def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate, track_best,
-                        solver, trace, block_apps, keep_state, init_state, active0, dev) -> dict:
+                        solver, trace, block_apps, keep_state, init_state, active0, group, dev) -> dict:
     """The fused-batch engine: init, then one lockstep round loop over every
     lane of `stacked` (see `engine_solve`)."""
     if init_state is None:
@@ -214,7 +228,7 @@ def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate
         history=history,
         trace=trace0,
     )
-    while carry.m < m_max and bool(carry.active.any()):
+    while carry.m < m_max and _any_active(carry.active, group):
         carry = round_step(
             stacked, carry, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
             colocate=colocate, solver=solver, block_apps=block_apps,
@@ -277,6 +291,7 @@ def engine_solve(
     keep_state: bool = True,
     init_state: State | None = None,
     active0: torch.Tensor | None = None,
+    group=None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """Run the alternating method on a stacked `[B, ...]` problem on
@@ -293,6 +308,10 @@ def engine_solve(
     slices, each with its own early exit. Per-lane results are the same in
     both layouts (bitwise on the CPU; on the card the Neumann and min-plus
     kernels do not depend on the batch, PyTorch's reductions may).
+    `group` (a `torch.distributed` process group, or None) makes the
+    round loop's exit flag a reduction over every rank of the group, each
+    solving its own lanes; every rank of the group must call this with the
+    same m_max and lane_chunk. None changes nothing.
 
     Returns a dict (leading axis B throughout):
       J / J_comm / J_comp : final objective split (best iterate, or the
@@ -310,7 +329,7 @@ def engine_solve(
     kw = dict(
         m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience, colocate=colocate,
         track_best=track_best, solver=solver, trace=trace, block_apps=block_apps,
-        keep_state=keep_state, dev=dev,
+        keep_state=keep_state, group=group, dev=dev,
     )
     if not lane_chunk:
         return _engine_solve_batch(stacked, init_state=init_state, active0=active0, **kw)

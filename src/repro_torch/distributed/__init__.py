@@ -1,4 +1,17 @@
-"""Sharding rules for the dry run (`sharding.py`, the substrate half of the
-JAX package's `distributed/sharding.py`). The fleet layout, the activation
-constraints (`act.py`) and the GPipe schedule (`pipeline.py`) wait for the
-mesh slice (ROADMAP.md, "Modules to port", item 3)."""
+"""Sharding rules (`sharding.py`: the dry run's substrate specs and the
+fleet's instance-axis layout) and the GPipe schedule (`pipeline.py`), the
+JAX package's `distributed/`. The activation constraints of its `act.py`
+wait for the model-parallel slice (ROADMAP.md, 'Modules to port', item 3b)."""
+from .sharding import (  # noqa: F401
+    FLEET_AXIS,
+    ShardingRules,
+    batch_pspec,
+    cache_pspecs,
+    carries_fleet_sharding,
+    fleet_pspec,
+    fleet_sharding,
+    param_pspecs,
+    shard_fleet,
+    to_named_shardings,
+)
+from .pipeline import pipeline_apply  # noqa: F401

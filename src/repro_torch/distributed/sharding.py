@@ -1,12 +1,24 @@
-"""Sharding rules: parameter, batch and decode-cache partition specs over a
-("data", "model"[, "pod"]) mesh (the substrate half of the JAX package's
-`distributed/sharding.py`, its rules as they stand).
+"""Sharding rules (the JAX package's `distributed/sharding.py`). Two layout
+families live here:
+
+1. the serving substrate's parameter, batch and decode-cache partition
+   specs over a ("data", "model"[, "pod"]) mesh, its rules as they stand;
+2. the fleet control plane's instance-axis layout (`FLEET_AXIS`,
+   `fleet_sharding`, `shard_fleet`): a stacked `[B, ...]` problem ensemble
+   laid out over a 1-D `DeviceMesh` of ranks, one process a device
+   (`launch.mesh.make_fleet_mesh`). Instances never talk to each other, so
+   the only collectives of a sharded solve are the engine's one exit flag
+   a round (core/engine.py) and the final gather. `fleet/solve.py` wraps
+   each rank's lanes with `DTensor.from_local` and checks its outputs with
+   `carries_fleet_sharding`, so a layout fallback is never silent.
 
 A partition spec here is a tuple with one entry per tensor dim, as JAX's
 `PartitionSpec` lists them: a mesh-axis name, None (replicated), or a tuple
 of names for a dim split over several axes; trailing dims left out are
-replicated, and () replicates the whole tensor. A mesh is
-`launch.mesh.MeshShape` (axis names and sizes, no devices).
+replicated, and () replicates the whole tensor. The substrate rules read a
+mesh as `launch.mesh.MeshShape` (axis names and sizes, no devices);
+`to_named_shardings` turns specs into DTensor placements over a real
+`DeviceMesh`.
 
 Baseline layout of the reference:
   * TP over "model" on the natural tensor-parallel dim of every matmul
@@ -26,10 +38,130 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models.config import ModelConfig
 from ..models.quant import STACKED
+
+
+# ---------------------------------------------------------------------------
+# Fleet control plane: instance-axis layout over a 1-D mesh of ranks
+# ---------------------------------------------------------------------------
+
+# The one mesh-dim name the fleet path uses everywhere: launch/mesh.py builds
+# the mesh over it, fleet/solve.py lays its lanes out on it, and the sharded
+# tests check that outputs still carry it.
+FLEET_AXIS = "fleet"
+
+
+def fleet_pspec() -> tuple:
+    """Leading instance axis over the fleet mesh, everything else replicated."""
+    return (FLEET_AXIS,)
+
+
+def fleet_sharding(mesh) -> list:
+    """The placements of every `[B, ...]` leaf of a stacked fleet over
+    `mesh`: Shard(0) on its fleet dim, Replicate() on any other."""
+    if FLEET_AXIS not in (mesh.mesh_dim_names or ()):
+        raise ValueError(
+            f"mesh {mesh.mesh_dim_names} has no {FLEET_AXIS!r} axis; build it "
+            "with repro_torch.launch.mesh.make_fleet_mesh"
+        )
+    return to_placements(mesh, fleet_pspec())
+
+
+def fleet_lanes(mesh, batch: int) -> slice:
+    """The lanes of a `batch`-lane stack that this rank holds under the fleet
+    layout: one contiguous block of batch / fleet-size lanes, by the rank's
+    coordinate on the fleet dim."""
+    size = mesh.size(mesh.mesh_dim_names.index(FLEET_AXIS))
+    if batch % size:
+        raise ValueError(
+            f"a fleet of {batch} lanes does not divide over {size} ranks; pad it with "
+            "fleet.pad_batch_to_multiple first"
+        )
+    coord = mesh.get_local_rank(FLEET_AXIS)
+    per = batch // size
+    return slice(coord * per, (coord + 1) * per)
+
+
+def _map_tensors(tree, fn):
+    """Apply `fn` to every tensor leaf of a tree of dataclasses, dicts,
+    lists and tuples; other leaves (hop bounds, cost kinds) pass."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _map_tensors(getattr(tree, f.name), fn)
+                             for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def fleet_from_local(tree, mesh):
+    """Every tensor leaf of `tree`, this rank's lanes of a fleet, as a
+    DTensor of the fleet layout (no data moves)."""
+    placements = fleet_sharding(mesh)
+    return _map_tensors(tree, lambda x: DTensor.from_local(x, mesh, placements))
+
+
+def shard_fleet(tree, mesh):
+    """Lay every tensor leaf of a stacked fleet out over the fleet layout.
+
+    Every data leaf of a stacked `Problem` / `PadInfo` / `State` is
+    `[B, ...]` with B divisible by the fleet size (fleet/solve.py pads with
+    inert repeats first), and every rank holds the whole tree (each builds
+    the same fleet from the same seed), so no data moves: each leaf becomes
+    `DTensor.from_local(leaf[this rank's lanes], mesh, fleet_sharding(mesh))`."""
+    return fleet_from_local(_map_tensors(tree, lambda x: x[fleet_lanes(mesh, x.shape[0])]), mesh)
+
+
+def carries_fleet_sharding(x) -> bool:
+    """True iff `x` is a DTensor laid out over a fleet dim of two or more
+    ranks with Shard(0) there. The output-side check of the "no silent
+    fallback" contract: a plain tensor, a one-rank mesh, or a replicated
+    fleet dim all return False."""
+    if not isinstance(x, DTensor):
+        return False
+    names = x.device_mesh.mesh_dim_names or ()
+    if FLEET_AXIS not in names:
+        return False
+    dim = names.index(FLEET_AXIS)
+    return x.device_mesh.size(dim) >= 2 and x.placements[dim] == Shard(0)
+
+
+def to_placements(mesh, spec: tuple) -> list:
+    """One partition spec as DTensor placements over `mesh`: Shard(d) on
+    every mesh dim the spec names for tensor dim d, Replicate() on the
+    rest. A tensor dim split over several axes takes them in mesh order."""
+    names = mesh.mesh_dim_names or ()
+    placements = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is None:
+                continue
+            if axis not in names:
+                raise ValueError(f"spec {spec} names {axis!r}, not an axis of mesh {names}")
+            i = names.index(axis)
+            if placements[i] != Replicate():
+                raise ValueError(f"spec {spec} uses mesh axis {axis!r} twice")
+            placements[i] = Shard(d)
+    return placements
+
+
+def to_named_shardings(mesh, spec_tree):
+    """A tree of partition specs (dicts and lists of spec tuples, as
+    `param_pspecs` and `cache_pspecs` return) as the same tree of placement
+    lists over `mesh`."""
+    if isinstance(spec_tree, tuple):
+        return to_placements(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: to_named_shardings(mesh, v) for k, v in spec_tree.items()}
+    return [to_named_shardings(mesh, v) for v in spec_tree]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +174,8 @@ class ShardingRules:
     # "heads" shards KV heads (falls back to seq when kv % axis != 0).
     cache_layout: str = "seq"
     # Sequence-parallel residual stream (an activation constraint of the
-    # reference's act.py, which waits for the mesh slice).
+    # reference's act.py, not ported yet: ROADMAP.md, 'Modules to port',
+    # item 3b).
     seq_shard_residual: bool = False
     # 2D ("data"+"model") tensor parallelism for serving (hillclimb option).
     serve_2d_tp: bool = False

@@ -1,2 +1,2 @@
 """Runnable examples (the JAX package's `examples/`): `python -m
-repro_torch.examples.train_100m`."""
+repro_torch.examples.quickstart`, `.edge_serving` and `.train_100m`."""

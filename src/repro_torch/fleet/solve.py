@@ -19,9 +19,17 @@ sequential solve of the unpadded problem up to float32 rounding.
     rounds against budget) lands in `obs.metrics.registry`. The JAX
     version's `fleet.compile.cold|warm` counters have no counterpart:
     nothing here compiles per padded shape.
-  * `shard=True` is the instance-axis mesh of the JAX package. On one card
-    it runs unsharded and says so in `FleetResult.shard`; across several
-    cards it is not ported yet (ROADMAP.md, 'Modules to port', item 3).
+  * `shard=True` lays the instance axis over a 1-D fleet mesh of ranks
+    (`launch.mesh.make_fleet_mesh`), one process a device under
+    `torch.distributed`: every rank calls `solve_fleet` with the same
+    problems, pads each chunk's lane count up to a rank multiple with inert
+    repeats, and stacks and solves only its own lanes over the chunk's
+    global envelope and hop bound. The round loop exits on one flag reduced
+    over the mesh a round (core/engine.py), the outputs are `DTensor`s with
+    Shard(0), checked by `carries_fleet_sharding`, and the gather
+    (`full_tensor()`) gives every rank the same `FleetResult`. On one rank
+    it runs unsharded, logged, and `FleetResult.shard` says
+    "single-device"; asking for more ranks than the group has raises.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core.alt import ALL_METHODS, linearize, method_kwargs
 from ..core.engine import engine_solve
@@ -37,6 +47,12 @@ from ..core.flow import objective
 from ..core.placement import structured_init
 from ..core.structs import Problem, State
 from ..device import solve_device
+from ..distributed.sharding import (
+    FLEET_AXIS,
+    carries_fleet_sharding,
+    fleet_from_local,
+    fleet_lanes,
+)
 from ..obs.metrics import registry as obs_registry
 from ..obs.roundtrace import FleetTrace
 from ..obs.trace import span, tracer_enabled
@@ -240,6 +256,7 @@ def _solve_fleet_stacked(
     lane_chunk: int = 0,
     init_state: State | None = None,
     active0=None,
+    group=None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """Dispatch one stacked batch onto the shared round engine."""
@@ -262,48 +279,60 @@ def _solve_fleet_stacked(
         keep_state=keep_state,
         init_state=init_state,
         active0=active0,
+        group=group,
         device=device,
     )
 
 
-def _plan_mesh(shard: bool, devices: int | None, dev: torch.device) -> tuple[int, str]:
+def _plan_mesh(shard: bool, devices: int | None, dev: torch.device):
     """Decide the instance-axis layout up front, explicitly and logged.
-    Returns (n_devices, reason)."""
+    Returns (mesh or None, n_devices, reason). The ranks are checked before
+    any collective (`launch.mesh.fleet_ranks`); the only fallback, a mesh
+    of one rank, is surfaced in the plan and the log."""
     if not shard:
         if devices is not None:
             raise ValueError("devices= only applies with shard=True")
-        return 1, "not-requested"
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if devices is not None:
-        if devices < 1 or devices > visible:
-            raise ValueError(f"devices={devices}: {visible} device(s) visible")
-        visible = devices
-    if visible > 1:
-        raise NotImplementedError(
-            f"solve_fleet(shard=True) over {visible} devices: the instance-axis mesh is not "
-            "ported yet; see ROADMAP.md, 'Modules to port', item 3 (the instance-axis mesh "
-            "comes last)"
+        return None, 1, "not-requested"
+    from ..launch.mesh import fleet_ranks, make_fleet_mesh
+
+    n_dev = fleet_ranks(devices, device=dev)
+    if n_dev < 2:
+        logger.warning(
+            "solve_fleet(shard=True): only one device in the mesh; running unsharded "
+            "(reason=single-device)"
         )
-    logger.warning(
-        "solve_fleet(shard=True): only one device in the mesh; running unsharded "
-        "(reason=single-device)"
-    )
-    return 1, "single-device"
+        return None, 1, "single-device"
+    return make_fleet_mesh(n_dev, device=dev), n_dev, "sharded"
 
 
-def _run_chunk(problems, *, envelope, hop_bound, n_parts, round_to, batch_to, solve_kw, warm=None):
-    """Stack one chunk (padding its lane count up to `batch_to` with inert
-    repeats of its first instance) and solve it. `warm` is an optional
-    (State, active mask or None) pair covering the real instances over the
-    fleet envelope; pad lanes repeat lane 0 and start frozen. Returns
-    (engine_out, stacked_info, n_real, n_lanes)."""
+def _run_chunk(problems, *, envelope, hop_bound, n_parts, round_to, mesh, batch_to, solve_kw, warm=None):
+    """Stack one chunk (padding its lane count up to `batch_to`, and on a
+    fleet mesh up to a rank multiple, with inert repeats of its first
+    instance) and solve it. On a mesh this rank stacks and solves only its
+    own lanes, over the chunk's global envelope, partition envelope and hop
+    bound, and its outputs come back as DTensors of the fleet layout. `warm`
+    is an optional (State, active mask or None) pair covering the real
+    instances over the fleet envelope; pad lanes repeat lane 0 and start
+    frozen, and a mesh slices the warm state and mask like the problems.
+    Returns (engine_out, stacked_info, n_real, n_lanes, outputs_sharded)."""
     real = len(problems)
     target = max(real, batch_to or 0)
+    if mesh is not None:
+        n_dev = mesh.size()
+        target = -(-target // n_dev) * n_dev
     if target > real:
         problems = list(problems) + [problems[0]] * (target - real)
+    mine = problems
+    if mesh is not None:
+        # Every rank pads to the chunk's own envelope, not its lanes'.
+        if envelope is None:
+            envelope = fleet_envelope(problems, round_to=round_to)
+            hop_bound = unify_hop_bound(problems)
+            n_parts = fleet_part_envelope(problems)
+        mine = problems[fleet_lanes(mesh, target)]
     with span("solve_fleet.stack", batch=target, real=real):
         stacked, info = stack_problems(
-            problems, round_to=round_to, envelope=envelope, hop_bound=hop_bound, n_parts=n_parts,
+            mine, round_to=round_to, envelope=envelope, hop_bound=hop_bound, n_parts=n_parts,
         )
     init_state = active0 = None
     if warm is not None:
@@ -327,13 +356,21 @@ def _run_chunk(problems, *, envelope, hop_bound, n_parts, round_to, batch_to, so
         )
         active0 = torch.cat([act, torch.zeros(target - real, dtype=torch.bool, device=dev)])
         init_state = w_state
+        if mesh is not None:
+            lanes = fleet_lanes(mesh, target)
+            init_state, active0 = State(x=w_state.x[lanes], phi=w_state.phi[lanes]), active0[lanes]
+    group = None if mesh is None else mesh.get_group(FLEET_AXIS)
     with span("solve_fleet.execute", batch=target):
-        out = _solve_fleet_stacked(stacked, init_state=init_state, active0=active0, **solve_kw)
+        out = _solve_fleet_stacked(stacked, init_state=init_state, active0=active0, group=group,
+                                   **solve_kw)
         if tracer_enabled() and stacked.device.type == "cuda":
             # Only when tracing: the span then covers the device work.
             torch.cuda.synchronize(stacked.device)
     out["parts"] = stacked.apps.parts
-    return out, info, real, target
+    if mesh is None:
+        return out, info, real, target, False
+    out, info = fleet_from_local(out, mesh), fleet_from_local(info, mesh)
+    return out, info, real, target, carries_fleet_sharding(out["J"])
 
 
 def envelope_cap_chunk(problems, *, round_to: int, n_devices: int, cap_gb: float) -> int:
@@ -349,7 +386,14 @@ def envelope_cap_chunk(problems, *, round_to: int, n_devices: int, cap_gb: float
     return lanes_per_device * max(1, n_devices)
 
 
+def _full(t):
+    """The whole tensor of a fleet-layout DTensor (a gather over the mesh),
+    or `t` itself."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _host(t):
+    t = _full(t)
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
@@ -384,19 +428,27 @@ def solve_fleet(
     method     : "ALT" | "OneShot" | "CongUnaware" | "CoLocated", matching
                  the sequential solvers in core/alt.py instance for instance
     round_to   : round the padded (V, A) envelope up to this multiple
-    shard      : lay the instance axis over a mesh of devices; on one
-                 device this runs unsharded and `FleetResult.shard` says
-                 "single-device"; over several it raises NotImplementedError
-    devices    : cap the mesh to the first N devices (requires shard=True)
+    shard      : lay the instance axis over a fleet mesh of the default
+                 process group's ranks (module doc); every rank calls this
+                 with the same problems and gets the same result. On one
+                 rank it runs unsharded, logged, and `FleetResult.shard`
+                 says "single-device"
+    devices    : cap the mesh to the first N ranks (requires shard=True;
+                 more than the group has, or on the card more than the
+                 visible GPUs, raises); ranks past it solve nothing and
+                 take rank 0's result (with devices=1, rank 0 solves
+                 unsharded and every other rank takes its result)
     solver     : "neumann" (hop-capped propagation, default) | "lu"
     block_apps : placement sweep schedule (core/placement.py): 1 = the
                  sequential scan, k > 1 = blocks of k apps, 0 = one block;
                  bitwise the same result for every value
     lane_chunk : engine layout over the instance axis (`engine_solve`):
-                 0 or None = the fused batch, k >= 1 = k-lane slices
+                 0 or None = the fused batch, k >= 1 = k-lane slices (which
+                 a fleet mesh of two or more ranks refuses)
     chunk_size : split ensembles larger than this into fixed-B chunks that
                  share the global envelope and hop bound (tail padded with
-                 repeats of its first instance, trimmed)
+                 repeats of its first instance, trimmed); on a mesh it is
+                 rounded up to a rank multiple
     envelope_cap_gb : cap the chunk size so one device's phi-shaped buffers
                  stay under this many GB (`envelope_cap_chunk`)
     trace      : carry the round trace out as `FleetResult.trace`; results
@@ -426,7 +478,13 @@ def solve_fleet(
     if keep_state and method == "CongUnaware":
         raise ValueError("keep_state is unsupported for CongUnaware")
     dev = solve_device(problems[0].device, device) if problems else torch.device(device)
-    n_dev, reason = _plan_mesh(shard, devices, dev)
+    mesh, n_dev, reason = _plan_mesh(shard, devices, dev)
+    if lane_chunk and mesh is not None:
+        raise ValueError(
+            f"lane_chunk={lane_chunk} is incompatible with a fleet mesh: every rank must run the "
+            "fused batch, whose round loop exits on one flag over the mesh — use lane_chunk=0 "
+            "(or leave it None) when shard=True"
+        )
     solve_kw = dict(
         method=method, m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
         solver=solver, trace=trace, keep_state=keep_state, block_apps=block_apps,
@@ -442,6 +500,10 @@ def solve_fleet(
                     "of B=%d (was %s)", envelope_cap_gb, cap, chunk_size,
                 )
             chunk_size = cap
+    if mesh is not None and chunk_size is not None and chunk_size % n_dev:
+        # Round the chunk itself, so every chunk (not just the tail) runs at
+        # a rank multiple.
+        chunk_size = -(-chunk_size // n_dev) * n_dev
 
     warm = None
     if warm_start is not None:
@@ -452,67 +514,85 @@ def solve_fleet(
             )
         warm = (warm_start, warm_active)
 
-    if chunk_size is None or n <= chunk_size:
-        outs = [_run_chunk(problems, envelope=None, hop_bound=None, n_parts=None, round_to=round_to,
-                           batch_to=None, solve_kw=solve_kw, warm=warm)]
-    else:
-        # One global envelope, hop bound and partition envelope: every
-        # chunk runs at the same shape.
-        envelope = fleet_envelope(problems, round_to=round_to)
-        hop_bound = unify_hop_bound(problems)
-        part_env = fleet_part_envelope(problems)
-        outs = [
-            _run_chunk(problems[i:i + chunk_size], envelope=envelope, hop_bound=hop_bound,
-                       n_parts=part_env, round_to=round_to, batch_to=chunk_size, solve_kw=solve_kw)
-            for i in range(0, n, chunk_size)
-        ]
+    def solve_and_gather() -> FleetResult:
+        chunk_kw = dict(round_to=round_to, mesh=mesh, solve_kw=solve_kw)
+        if chunk_size is None or n <= chunk_size:
+            outs = [_run_chunk(problems, envelope=None, hop_bound=None, n_parts=None, batch_to=None,
+                               warm=warm, **chunk_kw)]
+        else:
+            # One global envelope, hop bound and partition envelope: every
+            # chunk runs at the same shape.
+            envelope = fleet_envelope(problems, round_to=round_to)
+            hop_bound = unify_hop_bound(problems)
+            part_env = fleet_part_envelope(problems)
+            outs = [
+                _run_chunk(problems[i:i + chunk_size], envelope=envelope, hop_bound=hop_bound,
+                           n_parts=part_env, batch_to=chunk_size, **chunk_kw)
+                for i in range(0, n, chunk_size)
+            ]
 
-    plan = ShardPlan(
-        requested=shard, n_devices=n_dev, batch=n,
-        padded_batch=sum(lanes for (_, _, _, lanes) in outs), reason=reason, output_sharded=False,
-    )
-
-    with span("solve_fleet.gather", chunks=len(outs)):
-        def gather(get):
-            parts_ = [_host(get(o, i))[:k] for (o, i, k, _) in outs]
-            return parts_[0].copy() if len(parts_) == 1 else np.concatenate(parts_)
-
-        def field(name):
-            return gather(lambda o, i: o[name])
-
-        fleet_trace = None
-        if all(o.get("trace") is not None for (o, _, _, _) in outs):
-            fleet_trace = FleetTrace(**{
-                k: gather(lambda o, i, k=k: getattr(o["trace"], k))
-                for k in ("J_comm", "J_comp", "moves", "live", "best_round")
-            })
-        kept_state = None
-        if keep_state:
-            # Pad lanes trimmed per chunk; stays on the device (the next
-            # solve's warm start, not a host export).
-            states = [State(x=o["state"].x[:k], phi=o["state"].phi[:k]) for (o, _, k, _) in outs]
-            kept_state = states[0] if len(states) == 1 else State(
-                x=torch.cat([s.x for s in states]), phi=torch.cat([s.phi for s in states])
-            )
-        result = FleetResult(
-            method=method,
-            J=field("J"),
-            J_comm=field("J_comm"),
-            J_comp=field("J_comp"),
-            history=field("history"),
-            iters=field("iters"),
-            rounds=max(int(o["rounds"]) for (o, _, _, _) in outs),
-            hosts=field("hosts").astype(np.int32),
-            parts=field("parts").astype(np.int32),
-            node_mask=gather(lambda o, i: i.node_mask),
-            app_mask=gather(lambda o, i: i.app_mask),
-            shard=plan,
-            m_max=0 if method == "CongUnaware" else 1 if method == "OneShot" else m_max,
-            trace=fleet_trace,
-            state=kept_state,
+        plan = ShardPlan(
+            requested=shard, n_devices=n_dev, batch=n,
+            padded_batch=sum(lanes for (_, _, _, lanes, _) in outs), reason=reason,
+            output_sharded=mesh is not None and all(ok for (*_, ok) in outs),
         )
 
-    obs_registry.counter("fleet.chunks_executed").inc(len(outs))
+        with span("solve_fleet.gather", chunks=len(outs)):
+            def gather(get):
+                parts_ = [_host(get(o, i))[:k] for (o, i, k, _, _) in outs]
+                return parts_[0].copy() if len(parts_) == 1 else np.concatenate(parts_)
+
+            def field(name):
+                return gather(lambda o, i: o[name])
+
+            fleet_trace = None
+            if all(o.get("trace") is not None for (o, *_) in outs):
+                fleet_trace = FleetTrace(**{
+                    k: gather(lambda o, i, k=k: getattr(o["trace"], k))
+                    for k in ("J_comm", "J_comp", "moves", "live", "best_round")
+                })
+            kept_state = None
+            if keep_state:
+                # Pad lanes trimmed per chunk; stays on the device (the next
+                # solve's warm start, not a host export), whole on every rank.
+                states = [State(x=_full(o["state"].x)[:k], phi=_full(o["state"].phi)[:k])
+                          for (o, _, k, _, _) in outs]
+                kept_state = states[0] if len(states) == 1 else State(
+                    x=torch.cat([s.x for s in states]), phi=torch.cat([s.phi for s in states])
+                )
+            return FleetResult(
+                method=method,
+                J=field("J"),
+                J_comm=field("J_comm"),
+                J_comp=field("J_comp"),
+                history=field("history"),
+                iters=field("iters"),
+                rounds=max(int(o["rounds"]) for (o, *_) in outs),
+                hosts=field("hosts").astype(np.int32),
+                parts=field("parts").astype(np.int32),
+                node_mask=gather(lambda o, i: i.node_mask),
+                app_mask=gather(lambda o, i: i.app_mask),
+                shard=plan,
+                m_max=0 if method == "CongUnaware" else 1 if method == "OneShot" else m_max,
+                trace=fleet_trace,
+                state=kept_state,
+            )
+
+    world = dist.get_world_size() if shard and dist.is_initialized() else 1
+    if n_dev == world:
+        result = solve_and_gather()
+    else:
+        # Fewer ranks solve than the world holds (devices=N): the ranks past
+        # the first N hold no lanes and take rank 0's result.
+        box = [solve_and_gather() if dist.get_rank() < n_dev else None]
+        dist.broadcast_object_list(box, src=0)
+        result = box[0]
+        if result.state is not None:
+            result.state = State(x=result.state.x.to(dev), phi=result.state.phi.to(dev))
+
+    n_chunks = 1 if chunk_size is None or n <= chunk_size else -(-n // chunk_size)
+    plan = result.shard
+    obs_registry.counter("fleet.chunks_executed").inc(n_chunks)
     obs_registry.gauge("fleet.rounds_executed").set(result.rounds)
     obs_registry.gauge("fleet.m_max").set(result.m_max)
     obs_registry.gauge("fleet.early_exit_saved_rounds").set(max(0, result.m_max - result.rounds))

@@ -31,9 +31,13 @@ the flags are the JAX CLI's less `--use-pallas` / `--interpret`):
       --epochs 5 --m-max 2 --t-phi 2 --device cpu --trace-out spans.jsonl
   PYTHONPATH=src python -m repro_torch.obs.validate spans.jsonl
 
-`--shard` behaves as `solve_fleet(shard=True)`: one card runs unsharded,
-more than one raises before the first epoch (the instance-axis mesh is not
-ported yet).
+`--shard` behaves as `solve_fleet(shard=True)`: every rank of the process
+group runs the loop and each solve lays the instances over the fleet mesh;
+one rank runs unsharded. Under a launcher, one process a device:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.control --instances 8 \\
+      --epochs 5 --m-max 2 --t-phi 2 --shard --device cpu
+(gloo on the CPU, NCCL on GPUs); only rank 0 prints and writes files.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from ..device import resolve_device, solve_device
 from ..fleet import FAMILIES, sample_fleet, solve_fleet
 from ..fleet.pad import fleet_envelope, fleet_part_envelope, unify_hop_bound
 from ..fleet.solve import _plan_mesh
+from .mesh import init_from_env
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..obs.trace import span
@@ -206,9 +211,12 @@ def run_control(
     block_apps / lane_chunk : forwarded to every `solve_fleet` rung — the
                    placement sweep schedule and the engine's lane layout
                    (both bitwise-invariant knobs; see fleet/solve.py)
-    shard / devices : as `solve_fleet`; decided before the first epoch, so
-                   an unported mesh raises instead of sending every epoch
-                   down the ladder
+    shard / devices : as `solve_fleet`; the ranks are checked before the
+                   first epoch, so a mesh wider than the process group
+                   raises instead of sending every epoch down the ladder.
+                   Every rank of the process group runs this loop on the
+                   same fleet and trace, and every solve's result is whole
+                   on each rank
     device       : where the fleet lives and every solve runs
 
     The envelope and the hop bound are pinned from the base fleet, and the
@@ -466,7 +474,7 @@ def main(argv=None) -> int:
                     help="engine layout over the instance axis (0 or unset = the fused batch, "
                     "k >= 1 = k-lane slices; the same result)")
     ap.add_argument("--shard", action="store_true",
-                    help="lay the instance axis over a mesh of devices (one device: unsharded)")
+                    help="lay the instance axis over the launcher's ranks (one rank: unsharded)")
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--timeout-s", type=float, default=None,
                     help="soft per-epoch budget before the ladder stops escalating")
@@ -485,11 +493,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    rank = init_from_env(dev)
 
-    if args.trace_out:
+    if args.trace_out and rank == 0:
         obs_trace.configure(enabled=True, jsonl_path=args.trace_out,
                             chrome_path=obs_trace.chrome_path_for(args.trace_out))
-    else:
+    elif rank == 0:
         obs_trace.maybe_configure_from_env()
 
     with span("launch.control.build", instances=args.instances):
@@ -499,7 +508,7 @@ def main(argv=None) -> int:
             fleet, args.epochs, seed=args.seed + 1, node_failures=args.node_failures,
             link_degradations=args.link_degradations, flash_crowds=args.flash_crowds,
         )
-    if args.events_out:
+    if args.events_out and rank == 0:
         trace.save(args.events_out)
 
     ctl = run_control(
@@ -515,11 +524,12 @@ def main(argv=None) -> int:
         "metrics": obs_metrics.registry.snapshot(),
         "epochs": [r.to_dict() for r in ctl.reports],
     }
-    print(json.dumps(out, indent=1, default=str), flush=True)
-    if args.json_out:
-        with open(args.json_out, "w") as fh:
-            json.dump(out, fh, indent=1, default=str)
-    obs_trace.flush()
+    if rank == 0:
+        print(json.dumps(out, indent=1, default=str), flush=True)
+        if args.json_out:
+            with open(args.json_out, "w") as fh:
+                json.dump(out, fh, indent=1, default=str)
+        obs_trace.flush()
     if args.assert_feasible and (s["infeasible_epochs"] or s["nonfinite_epochs"]):
         print(
             f"ASSERTION FAILED: {s['infeasible_epochs']} infeasible / "

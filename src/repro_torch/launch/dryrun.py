@@ -17,7 +17,7 @@ holds:
     JAX computes them.
   * memory.temp_bytes: peak_bytes minus the arguments, on a one-device mesh
     only; JAX's comes from the SPMD partitioner, which the port lacks.
-  * collective_bytes: null; the port has no device mesh yet.
+  * collective_bytes: null; the port has no model-parallel mesh yet.
 
 The run stays on the host by design, as JAX's runs on fake CPU devices: it
 takes no device and allocates nothing on the card.
@@ -57,7 +57,8 @@ from .mesh import MeshShape, make_debug_mesh, make_production_mesh
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
-_MESH_REASON = "needs the SPMD partitioner: the port has no device mesh yet (ROADMAP.md, Modules to port, item 3)"
+_MESH_REASON = ("needs the SPMD partitioner: the port has no model-parallel mesh yet "
+                "(ROADMAP.md, Modules to port, item 3b)")
 
 
 def _shape(shape: str | ShapeConfig) -> ShapeConfig:

@@ -5,8 +5,14 @@
         --instances 4 --m-max 4 --t-phi 4 --device cpu
     python -m repro_torch.launch.fleet --scenario iot --load-grid 0.4,0.8,1.2 --device cpu
 
-Without `--device cpu` it runs on the GPU (and raises without one). The
-flags are the JAX CLI's, less `--use-pallas` / `--interpret`: the port has
+Without `--device cpu` it runs on the GPU (and raises without one).
+`--shard` lays the instances over the ranks of a launcher, one process a
+device (gloo on the CPU, NCCL on GPUs), and only rank 0 prints:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.fleet --instances 8 --m-max 2 --t-phi 2 --shard --device cpu
+
+The flags are the JAX CLI's, less `--use-pallas` / `--interpret`: the port has
 one route, the CUDA kernels on the card and their plain versions on the
 CPU, and its JSON reports the route that ran under the same two keys. The
 JSON also carries a "metrics" snapshot and the round-trace summary under
@@ -25,6 +31,7 @@ from ..device import resolve_device
 from ..fleet import FAMILIES, METHODS, load_grid, sample_fleet, solve_fleet
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from .mesh import init_from_env
 
 
 def main(argv=None) -> int:
@@ -44,9 +51,9 @@ def main(argv=None) -> int:
     ap.add_argument("--t-phi", type=int, default=10)
     ap.add_argument("--round-to", type=int, default=8)
     ap.add_argument("--shard", action="store_true",
-                    help="lay the instance axis over a mesh of devices (one device: unsharded)")
+                    help="lay the instance axis over the launcher's ranks (one rank: unsharded)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="cap the mesh to the first N devices (requires --shard)")
+                    help="cap the mesh to the first N ranks (requires --shard)")
     ap.add_argument("--envelope-cap-gb", type=float, default=None,
                     help="bound one device's [B, A, K, V, V] engine buffers by capping the chunk size")
     ap.add_argument("--solver", choices=("neumann", "lu"), default="neumann",
@@ -65,11 +72,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    rank = init_from_env(dev)
 
-    if args.trace_out:
+    if args.trace_out and rank == 0:
         obs_trace.configure(enabled=True, jsonl_path=args.trace_out,
                             chrome_path=obs_trace.chrome_path_for(args.trace_out))
-    else:
+    elif rank == 0:
         obs_trace.maybe_configure_from_env()
 
     partitions = [int(x) for x in args.partitions.split(",")] if args.partitions else None
@@ -93,6 +101,8 @@ def main(argv=None) -> int:
             lane_chunk=args.lane_chunk, device=dev,
         )
     dt = time.time() - t0
+    if rank != 0:
+        return 0
     print(json.dumps({
         "method": res.method,
         "solver": args.solver,

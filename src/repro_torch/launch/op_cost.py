@@ -19,7 +19,7 @@ the dry run) or on the card. `analyze` returns JAX's keys:
                its allocation until it is released (a weakref finalizer on
                the storage), as a caching allocator sees the step's own
                tensors.
-  collectives  {}: the port has no device mesh yet.
+  collectives  {}: the port has no model-parallel mesh yet.
   warnings     what the count cannot see.
 
 The layers are a Python loop, so there is no loop trip count to scale: a
@@ -48,8 +48,8 @@ if hasattr(torch.ops.aten, "sym_is_contiguous"):
     _METADATA_OPS.add(torch.ops.aten.sym_is_contiguous.default)
 
 COLLECTIVES_WARNING = (
-    "collectives: none counted; the port has no device mesh yet "
-    "(ROADMAP.md, Modules to port, item 3)"
+    "collectives: none counted; the port has no model-parallel mesh yet "
+    "(ROADMAP.md, Modules to port, item 3b)"
 )
 
 

@@ -11,9 +11,10 @@ package's `launch/train.py`).
 
 Flags and output lines are the JAX CLI's, plus --device (default "cuda",
 which raises without a GPU). One device only: --model-parallel other than
-1, or more than one visible GPU, raises NotImplementedError (the mesh is
-ROADMAP.md, "Modules to port", item 3). Frontend archs train as their token
-backbone, as the JAX CLI does; an encoder-decoder raises ValueError, where
+1, or more than one visible GPU, raises NotImplementedError (model
+parallelism waits for ROADMAP.md, "Modules to port", item 3b). Frontend
+archs train as their token backbone, as the JAX CLI does; an
+encoder-decoder raises ValueError, where
 the JAX CLI fails at the first step with KeyError 'dec_tokens' (its loss
 needs decoder tokens the LM stream does not provide).
 
@@ -75,8 +76,8 @@ def main(argv=None) -> int:
     if args.model_parallel != 1 or (dev.type == "cuda" and torch.cuda.device_count() > 1):
         raise NotImplementedError(
             f"train: --model-parallel {args.model_parallel} over {torch.cuda.device_count()} "
-            "visible GPU(s): the mesh is not ported yet; see ROADMAP.md, 'Modules to port', "
-            "item 3 (the mesh comes last). Run on one device."
+            "visible GPU(s): model parallelism is not ported yet; see ROADMAP.md, 'Modules to "
+            "port', item 3b. Run on one device."
         )
 
     params = init_params(cfg, args.seed, device=dev)

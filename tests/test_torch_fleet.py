@@ -289,11 +289,30 @@ def test_shard_plan(fleets, caplog, monkeypatch):
     assert "1dev B=2->2 single-device" in res.summary()
     with pytest.raises(ValueError, match="devices= only applies"):
         TF.solve_fleet(tf[:2], devices=2, device="cpu")
+    # One process is a world of one rank, however many GPUs it sees: a
+    # wider mesh needs one process a device (tests/test_torch_mesh.py).
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        t_solve._plan_mesh(True, None, torch.device("cuda"))
-    assert t_solve._plan_mesh(True, 1, torch.device("cuda")) == (1, "single-device")
-    assert t_solve._plan_mesh(False, None, torch.device("cuda")) == (1, "not-requested")
+    with pytest.raises(ValueError, match="process group has 1 rank"):
+        t_solve._plan_mesh(True, 2, torch.device("cuda"))
+    assert t_solve._plan_mesh(True, None, torch.device("cuda")) == (None, 1, "single-device")
+    assert t_solve._plan_mesh(True, 1, torch.device("cuda")) == (None, 1, "single-device")
+    assert t_solve._plan_mesh(False, None, torch.device("cuda")) == (None, 1, "not-requested")
+
+
+def test_make_fleet_mesh_needs_a_process_group():
+    """Without a process group one process is a world of one rank: a wider
+    mesh is refused by its count, and even a one-rank mesh raises rather
+    than start a group of its own."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="process group has 1 rank"):
+        make_fleet_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="needs an initialised process group"):
+        make_fleet_mesh(device="cpu")
+    assert not dist.is_initialized()
 
 
 def test_fleet_metrics(fleets):

@@ -4,6 +4,8 @@ CPU on their own, and its kernel wrappers never stand the plain version in
 for the kernel on a CUDA tensor."""
 import ast
 import dataclasses
+import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -22,7 +24,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
 from repro_torch import chaos
+from repro_torch.distributed import pipeline_apply
+from repro_torch.examples import edge_serving, quickstart
 from repro_torch.launch import control as control_cli
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import fleet as fleet_cli
 from repro_torch.launch import pareto as pareto_cli
 from repro_torch.launch import serve
@@ -69,6 +74,51 @@ def test_cpu_serve_cli_imports_neither_jax_nor_repro():
                          env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert '"requests": 3' in res.stdout and '"generated_tokens": 9' in res.stdout, res.stdout
+
+
+def test_torchrun_fleet_and_control_clis_import_neither_jax_nor_repro(tmp_path):
+    """The fleet and control CLIs under `torch.distributed.run`, 2 gloo
+    ranks, with `jax` and `repro` shadowed by packages that raise on import:
+    the instances are laid over both ranks and only rank 0 prints."""
+    for name in ("jax", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('the port imported {name}')\n")
+    env = {"PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT / "src")]), "PATH": os.environ["PATH"],
+           "OMP_NUM_THREADS": "1", "HOME": str(tmp_path)}
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2", "-m"]
+    fleet_run = subprocess.run(run + ["repro_torch.launch.fleet", "--instances", "3", "--m-max", "2",
+                                      "--t-phi", "2", "--shard", "--device", "cpu"],
+                               capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
+    assert fleet_run.returncode == 0, fleet_run.stderr[-3000:]
+    assert fleet_run.stdout.count('"method": "ALT"') == 1, fleet_run.stdout[-2000:]
+    shard = json.loads(fleet_run.stdout)["shard"]
+    assert shard["reason"] == "sharded" and shard["n_devices"] == 2 and shard["padded_batch"] == 4
+    assert shard["output_sharded"]
+    control_run = subprocess.run(run + ["repro_torch.launch.control", "--instances", "2", "--epochs", "4",
+                                        "--m-max", "2", "--t-phi", "2", "--shard", "--device", "cpu"],
+                                 capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
+    assert control_run.returncode == 0, control_run.stderr[-3000:]
+    assert json.loads(control_run.stdout)["summary"]["epochs"] == 4
+
+
+def test_mesh_pipeline_and_examples_default_to_cuda(monkeypatch):
+    """Without a GPU, the fleet mesh, the pipeline schedule, a sharded solve
+    and the two examples called without device= raise; none continues on
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_problem = scenarios.iot(device="cpu")
+    x = torch.zeros(2, 4, 8)
+    for call in (
+        mesh_mod.make_fleet_mesh,
+        lambda: mesh_mod.make_fleet_mesh(1),
+        mesh_mod.init_from_env,
+        lambda: pipeline_apply(lambda p, v: v, {"w": torch.zeros(1, 8, 8)}, x, mesh=None),
+        lambda: fleet.solve_fleet([cpu_problem], shard=True),
+        quickstart.main,
+        edge_serving.main,
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def _imports(path: Path):
