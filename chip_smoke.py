@@ -7,7 +7,7 @@ Builds the hand-written CUDA kernels from `src/repro_torch/csrc/` (into
 `build/kernels/`; phase 0 prints each kernel's registers, the count of
 HGMMA (wgmma) instructions in the flash library and the min-plus kernels'
 instruction mix where the toolkit has cuobjdump, and fails if
-`neumann_cols_kernel` or an argmin kernel spills), then runs thirteen
+`neumann_cols_kernel` or an argmin kernel spills), then runs fourteen
 phases, each printing JSON lines:
 
   1. kernels vs their plain PyTorch versions on the card, at the main
@@ -101,8 +101,11 @@ phases, each printing JSON lines:
  12. the dry run (`python -m repro_torch.launch.dryrun`): its whole matrix
      (10 archs x 4 shapes x 2 production meshes) runs on the host from the
      script's start, in the background (`DryrunMatrix`, it never touches
-     the card), and every cell must be ok, or skipped exactly where
-     `shape_applicable` says (66 ok, 14 skipped); then one train (phase
+     the card); every cell must be ok with per-device FLOPs, temporaries
+     and nonzero collectives (each cell traced a second time on DTensors
+     under a fake process group of the mesh's size), skipped exactly where
+     `shape_applicable` says, or an error naming the op DTensor has no
+     sharding rule for (MoE's dispatch); then one train (phase
      11's shape), prefill (2 x 32768) and decode (8 x 32768 cache) step of
      qwen1.5-0.5b on the one-device mesh against the same step on the
      card: FLOPs equal exactly (FlopCounterMode with the flash op's
@@ -123,9 +126,24 @@ phases, each printing JSON lines:
      wgmma; (d) the CPU tests' 4-rank gloo runs (`tests/_torch_ranks.py`:
      the sharded fleet and control loop, the GPipe schedule) on this
      host's CPU, every check held and the numbers within 1e-5 of the
-     committed reference (`tests/torch_ranks_reference.json`).
+     committed reference (`tests/torch_ranks_reference.json`);
+ 14. model parallelism: (a) 3 steps of phase 11's model and batches through
+     the train step over a (data=1, model=1) `DeviceMesh` of a one-rank
+     NCCL group, parameters, moments and batch as DTensors under
+     `activation_sharding`, held bitwise (losses, grad norms, parameters)
+     to the plain step from the same weights, the flash kernel launched
+     through its DTensor sharding rule twice a layer a step, the step's
+     p50 beside the plain one's and phase 11's (DTensor's host cost), and
+     the flash wrapper on CUDA DTensors: the kernel's output bitwise, a
+     dtype it refuses raised; (b) the dry run's per-device records of
+     qwen1.5-0.5b (train_4k, prefill_32k, decode_32k on 16x16 and 2x16x16,
+     from phase 12's matrix): collectives by kind, temporaries, FLOPs and
+     argument GiB per device, none null; (c) the CPU tests' model-parallel
+     gloo run (`tests/_torch_ranks.py model_parallel`: a (2, 2) mesh of 4
+     ranks against one process, the CLI's resume, checkpoints across mesh
+     shapes) on this host's torch, every check held.
 
-Kernel launches are counted only while the main paths run (phases 2-13),
+Kernel launches are counted only while the main paths run (phases 2-14),
 by kernel and by variant; every kernel must have launched there, every
 phase-3 `neumann_cols` and `neumann_rows` launch must be a resident cluster
 of more than one CTA, and every phase-5 and phase-10 bf16 flash launch
@@ -139,6 +157,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2682,34 +2702,60 @@ class DryrunMatrix:
                     p.wait()
 
 
-def phase12_matrix(matrix) -> None:
-    """Every cell of the dry run's matrix ok, or skipped exactly where
-    `shape_applicable` says."""
+def phase12_matrix(matrix) -> float:
+    """Every cell of the dry run's matrix ok where `shape_applicable` says
+    and skipped elsewhere. An ok cell has per-device FLOPs, temporaries
+    and nonzero collectives, unless it is one of `KNOWN_MESH_ERRORS`:
+    then its DTensor trace must fail on exactly the op listed there
+    (DTensor has no sharding rule for it), and any other mesh error fails.
+    Returns the matrix's wall s."""
     from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.dryrun import KNOWN_MESH_ERRORS, missing_rule
     from repro_torch.models.config import SHAPES, shape_applicable
 
     wall_s = matrix.join()
-    bad_rc = {f"{a}{' --multi-pod' if mp else ''}": rc for (a, mp), rc in matrix.rcs.items() if rc != 0}
     recs = {(r["arch"], r["shape"], r["mesh"]): r
             for r in (json.loads(f.read_text()) for f in DRYRUN_DIR.glob("*.json"))}
-    cells, wrong = {}, []
+    cells, flops, coll, wrong, mesh_errors = {}, {}, {}, [], {}
+    n_applicable = 0
     for arch in ARCHS:
         for shape in SHAPES:
-            want = "ok" if shape_applicable(get_config(arch), SHAPES[shape])[0] else "skipped"
+            applicable = shape_applicable(get_config(arch), SHAPES[shape])[0]
+            known = KNOWN_MESH_ERRORS.get((arch, shape))
             for mesh in ("16x16", "2x16x16"):
+                n_applicable += applicable
                 r = recs.get((arch, shape, mesh), {"status": "missing"})
-                if r["status"] != want:
+                key = f"{arch}/{shape}/{mesh}"
+                if r["status"] != ("ok" if applicable else "skipped"):
                     wrong.append((arch, shape, mesh, r["status"], r.get("error", "")[:200]))
-                if r["status"] == "ok":
-                    cells[f"{arch}/{shape}/{mesh}"] = [r["flops"], r["per_device_argument_gib"]]
+                if r["status"] != "ok":
+                    continue
+                cells[key] = [r["flops_per_device"], r["per_device_argument_gib"]]
+                flops[key] = r["flops"]
+                coll[key] = r["collective_bytes"]
+                if known is not None:
+                    mesh_errors[key] = missing_rule(r.get("mesh_error"))
+                    if mesh_errors[key] != known:
+                        wrong.append((arch, shape, mesh, f"want a mesh error on {known}",
+                                      (r.get("mesh_error") or "none")[:200]))
+                elif "mesh_error" in r:
+                    wrong.append((arch, shape, mesh, "mesh error", r["mesh_error"][:200]))
+                elif not (r["flops_per_device"] > 0 and r["memory"]["temp_bytes"] is not None
+                          and sum(r["collective_bytes"].values()) > 0):
+                    wrong.append((arch, shape, mesh, "no per-device numbers or zero collectives"))
     counts = {k: sum(r["status"] == k for r in recs.values()) for k in ("ok", "skipped", "error")}
-    n_ok = 2 * sum(shape_applicable(get_config(a), s)[0] for a in ARCHS for s in SHAPES.values())
-    want_counts = {"ok": n_ok, "skipped": 2 * len(ARCHS) * len(SHAPES) - n_ok, "error": 0}
+    # A unit exits 1 when one of its cells records a mesh error (each held above).
+    known_archs = {a for a, _ in KNOWN_MESH_ERRORS}
+    bad_rc = {f"{a}{' --multi-pod' if mp else ''}": rc for (a, mp), rc in matrix.rcs.items()
+              if rc != 0 and not (rc == 1 and a in known_archs)}
     emit({"phase": 12, "name": "dryrun_matrix", "wall_s": wall_s, "processes": DRYRUN_WORKERS, **counts,
-          "trace_s_total": sum(r.get("trace_s", 0.0) for r in recs.values()),
-          "cells_flops_gib_per_device": cells})
-    if bad_rc or wrong or counts != want_counts:
+          "trace_s_total": sum(r.get("trace_s", 0.0) + r.get("mesh_trace_s", 0.0) for r in recs.values()),
+          "cells_flops_gib_per_device": cells, "cells_flops_global": flops, "cells_collective_bytes": coll,
+          "mesh_errors_op": mesh_errors})
+    if bad_rc or wrong or counts != {"ok": n_applicable, "skipped": 2 * len(ARCHS) * len(SHAPES) - n_applicable,
+                                     "error": 0}:
         raise AssertionError(f"phase 12: dry-run matrix {counts}, exit codes {bad_rc}, cells {wrong[:5]}")
+    return wall_s
 
 
 def phase12_step(counter, shape) -> None:
@@ -2790,12 +2836,12 @@ def phase12(counter, matrix) -> None:
     from repro_torch.models.config import ShapeConfig
 
     t0 = time.perf_counter()
-    phase12_matrix(matrix)
+    matrix_s = phase12_matrix(matrix)
     t1 = time.perf_counter()
     for kind, seq, batch in DRYRUN_STEPS:
         phase12_step(counter, ShapeConfig(f"{kind}_{batch}x{seq}", kind, seq, batch))
-    emit({"phase": 12, "name": "dryrun", "wall_s": time.perf_counter() - t0, "matrix_wait_s": t1 - t0,
-          "steps_s": time.perf_counter() - t1})
+    emit({"phase": 12, "name": "dryrun", "wall_s": time.perf_counter() - t0, "matrix_wall_s": matrix_s,
+          "matrix_wait_s": t1 - t0, "matrix_hidden_s": matrix_s - (t1 - t0), "steps_s": time.perf_counter() - t1})
 
 
 # Phase 13: the examples on the card against the CPU, the fleet and the
@@ -3057,6 +3103,188 @@ def phase13(counter, problems, phase7_J) -> None:
     emit({"phase": 13, "name": "mesh_pipeline_examples", "wall_s": time.perf_counter() - t[0]})
 
 
+# Phase 14: model parallelism. (a) phase 11's model and batches through the
+# model-parallel step on a (data=1, model=1) mesh over a one-rank NCCL group;
+# (b) the dry run's per-device records of qwen1.5-0.5b on both production
+# meshes, from phase 12's matrix.
+MP_STEPS = 3
+MP_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def phase14_train(counter, plain_p50_ms: float) -> dict:
+    """(a) MP_STEPS train steps of phase 11's config and batches, plain and
+    over the one-rank mesh as DTensors under activation_sharding, from the
+    same weights: losses, grad norms and parameters bitwise; the flash op
+    launched through its sharding rule twice a layer a step (remat), all
+    wgmma; then the wrapper on CUDA DTensors, which launches or raises."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.distributed.sharding import ShardingRules, distribute_batch, distribute_params, param_pspecs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import MeshShape, build_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, trainable
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(TRAIN_ARCH)
+    stream = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=1234))
+    batches = [torch.from_numpy(stream.next_batch()).cuda() for _ in range(MP_STEPS)]
+    mesh, rules = build_mesh(1, "cuda"), ShardingRules()
+
+    def train(on_mesh: bool):
+        params = init_params(cfg, 0, device="cuda")
+        if on_mesh:
+            distribute_params(params, mesh, param_pspecs(cfg, params, MeshShape.of(mesh), rules))
+        opt = adamw_init(trainable(params))
+        step = make_train_step(cfg, lr=TRAIN_LR, **({"mesh": mesh, "rules": rules} if on_mesh else {}))
+        losses, norms, ms = [], [], []
+
+        def run():
+            nonlocal params, opt
+            for b in batches:
+                t0 = time.perf_counter()
+                batch = distribute_batch({"tokens": b}, mesh, rules) if on_mesh else {"tokens": b}
+                params, opt, m = step(params, opt, batch)
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+
+        counter.run(run)
+        final = {n: (p.to_local() if isinstance(p, DTensor) else p).detach().clone()
+                 for n, p in params.named_parameters()}
+        dtensors = all(isinstance(p, DTensor) for p in params.parameters()) and all(
+            isinstance(t, DTensor) for t in opt["mu"].values())
+        del params, opt
+        free_device()
+        return losses, norms, ms, final, dtensors
+
+    plain = train(False)
+    plain_launches = counter.last["flash_attention"]
+    mp = train(True)
+    launches, variants = counter.last["flash_attention"], counter.last_variants["flash_attention"]
+    params_bitwise = all(torch.equal(mp[3][n], w) for n, w in plain[3].items())
+    differ = [n for n, w in plain[3].items() if not torch.equal(mp[3][n], w)][:5]
+    plain, mp = plain[:3] + plain[4:], mp[:3] + mp[4:]  # the final parameters go
+    free_device()
+
+    # The wrapper on CUDA DTensors at the serve prefill's shape: the kernel's
+    # output bitwise, one launch; a dtype the kernels refuse raises.
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn(8, 16, 1024, 64, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    rep = [Replicate()] * 2
+    qd, kd, vd = (distribute_tensor(t, mesh, rep, src_data_rank=None) for t in (q, k, v))
+    out_d = counter.run(lambda: flash_attention(qd, kd, vd))
+    wrapper_launches = dict(counter.last_variants["flash_attention"])
+    out = flash_attention(q, k, v)
+    wrapper_bitwise = isinstance(out_d, DTensor) and torch.equal(out_d.to_local(), out)
+    try:
+        flash_attention(*(t.to(torch.float16) for t in (qd, kd, vd)))
+        refused = None
+    except (TypeError, ValueError, RuntimeError) as e:  # DTensor wraps the op's own error
+        refused = f"{type(e).__name__}: {e}"[:200]
+    del q, k, v, qd, kd, vd, out, out_d
+    free_device()
+
+    p50 = sorted(mp[2][1:])[len(mp[2][1:]) // 2]
+    p50_plain = sorted(plain[2][1:])[len(plain[2][1:]) // 2]
+    result = {
+        "mesh": str(mesh), "steps": MP_STEPS, "losses": mp[0], "grad_norms": mp[1],
+        "losses_plain": plain[0], "grad_norms_plain": plain[1],
+        "losses_bitwise": mp[0] == plain[0], "grad_norms_bitwise": mp[1] == plain[1],
+        "params_bitwise": params_bitwise, "params_differ": differ, "dtensors": mp[3],
+        "flash_launches": launches, "flash_variants": variants, "flash_launches_plain": plain_launches,
+        "step_ms": mp[2], "step_ms_plain": plain[2], "step_ms_p50": p50, "step_ms_p50_plain": p50_plain,
+        "step_ms_p50_phase11": plain_p50_ms, "dtensor_host_overhead_ms": p50 - p50_plain,
+        "wrapper_dtensor_launches": wrapper_launches, "wrapper_dtensor_bitwise": wrapper_bitwise,
+        "wrapper_dtensor_float16_refused": refused,
+    }
+    emit({"phase": 14, "part": "a", "name": "model_parallel_train_one_rank_nccl", **result})
+    checks = {
+        "losses bitwise": result["losses_bitwise"], "grad norms bitwise": result["grad_norms_bitwise"],
+        "params bitwise": params_bitwise, "params and moments are DTensors": mp[3],
+        "flash through its rule, twice a layer a step": launches == 2 * cfg.n_layers * MP_STEPS
+        and set(variants) == {"wgmma"},
+        "wrapper on DTensors launches the kernel": wrapper_launches == {"wgmma": 1} and wrapper_bitwise,
+        "wrapper refuses float16": refused is not None,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14a: {failed} {result}")
+    return result
+
+
+def phase14_dryrun() -> dict:
+    """(b) The matrix's qwen1.5-0.5b records on both production meshes:
+    collectives by kind, per-device temporaries, FLOPs and arguments; none
+    null, none an error."""
+    rows, bad = {}, []
+    for shape in MP_CELLS:
+        for mesh in ("16x16", "2x16x16"):
+            f = DRYRUN_DIR / f"{DRYRUN_ARCH}__{shape}__{mesh}.json"
+            r = json.loads(f.read_text()) if f.exists() else {"status": "missing"}
+            if r["status"] != "ok":
+                bad.append((shape, mesh, r["status"], r.get("error", "")[:200]))
+                continue
+            row = {"collective_bytes": r["collective_bytes"], "temp_bytes": r["memory"]["temp_bytes"],
+                   "flops_per_device": r["flops_per_device"], "flops": r["flops"],
+                   "per_device_argument_gib": r["per_device_argument_gib"], "mesh_trace_s": r["mesh_trace_s"]}
+            if any(v is None for v in row.values()) or not row["collective_bytes"]:
+                bad.append((shape, mesh, "null", r.get("mesh_error"), row))
+            rows[f"{shape}/{mesh}"] = row
+    emit({"phase": 14, "part": "b", "name": "dryrun_mesh_records", "arch": DRYRUN_ARCH, "cells": rows})
+    if bad:
+        raise AssertionError(f"phase 14b: {bad}")
+    return rows
+
+
+def phase14_ranks() -> dict:
+    """(c) The CPU tests' model-parallel run on this host's torch: 4 gloo
+    ranks, a (data=2, model=2) mesh (`tests/_torch_ranks.py
+    model_parallel`), every check held."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_torch_ranks", ROOT / "tests" / "_torch_ranks.py")
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    out_dir = ROOT / "build" / "phase14_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        r = ranks.finish(ranks.launch("model_parallel", out_dir), out_dir, "model_parallel")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    failed = ranks.failed_checks(r)
+    row = {"device": "cpu", "ranks": ranks.N_RANKS, "backend": "gloo", "torch": str(r["torch"]),
+           "wall_s": time.perf_counter() - t0, "ranks_wall_s": float(r["wall_s"]),
+           "checks": sum(1 for k in r if k.startswith("check.")), "step_s": float(r["mp_step_s"]),
+           "losses": r["mp.losses"].tolist(), "losses_one_process": r["one.losses"].tolist()}
+    emit({"phase": 14, "part": "c", "name": "model_parallel_gloo_ranks_on_host", **row})
+    if failed:
+        raise AssertionError(f"phase 14c: failed checks {failed}")
+    return row
+
+
+def phase14(counter, plain_p50_ms: float) -> None:
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        phase14_train(counter, plain_p50_ms)
+    finally:
+        dist.destroy_process_group()
+    t1 = time.perf_counter()
+    phase14_dryrun()
+    t2 = time.perf_counter()
+    phase14_ranks()
+    emit({"phase": 14, "name": "model_parallelism", "wall_s": time.perf_counter() - t0, "train_s": t1 - t0,
+          "ranks_s": time.perf_counter() - t2})
+
+
 def main() -> int:
     import torch
 
@@ -3137,6 +3365,7 @@ def run_phases(torch, matrix) -> int:
     trained = phase11(counter)
     phase12(counter, matrix)
     phase13(counter, fleet_problems, phase7_J)
+    phase14(counter, trained["train"]["step_ms_p50"])
     summary["flash_attention"]["backward"] = {
         "route": "plain (recompute under autograd, kernels/flash_attention/ops.py::flash_attention_backward)",
         "rows": trained["flash_grad_rows"],

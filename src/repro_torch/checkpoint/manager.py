@@ -6,10 +6,13 @@
   * keep-K:    bounded disk, the oldest pruned after a successful save;
   * self-describing: a manifest of every leaf's name, shape and dtype, so
                a restore is checked against the running model;
-  * device-agnostic: leaves are saved as host arrays and restored onto any
-               device (`restore(..., device=)`), e.g. saved from the card
-               and restored on the CPU, the port's counterpart of the
-               reference's restore onto another mesh;
+  * device- and mesh-agnostic: leaves are saved as host arrays and
+               restored onto any device (`restore(..., device=)`), e.g.
+               saved from the card and restored on the CPU; a DTensor
+               leaf is saved whole (`full_tensor()`, a collective every
+               rank joins; rank 0 writes) and restored in the layout of
+               the running model's leaf, so a checkpoint moves between
+               mesh shapes as the reference's does;
   * resumable data stream: `extra` carries the pipeline state.
 
 A tree is a nested dict whose leaves are tensors, or modules (a
@@ -27,7 +30,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..device import resolve_device
 
@@ -47,15 +52,29 @@ def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 
 def _unflatten(like, flat: dict, prefix: str = ""):
     """`flat`'s tensors in `like`'s structure; a module becomes the dict of
-    its state_dict names."""
+    its state_dict names. A DTensor leaf of `like` takes its layout."""
     if isinstance(like, nn.Module):
-        return {k: flat[prefix + k] for k in like.state_dict()}
+        return {k: _like(v, flat[prefix + k]) for k, v in like.state_dict().items()}
     if isinstance(like, dict):
         return {k: _unflatten(v, flat, f"{prefix}{k}.") for k, v in like.items()}
-    return flat[prefix[:-1]]
+    return _like(like, flat[prefix[:-1]])
+
+
+def _like(like: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`t` (the whole tensor, on every rank) laid out as `like`."""
+    if isinstance(like, DTensor):
+        return distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+    return t
+
+
+def _writer() -> bool:
+    """Rank 0 writes (every process without a group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:  # numpy has no bfloat16: keep the raw bits
         return t.view(torch.int16).numpy()
@@ -100,12 +119,20 @@ class CheckpointManager:
     # -- save/restore ------------------------------------------------------
     def save(self, step: int, tree, extra: dict | None = None) -> None:
         """tree: nested dict of tensors / modules. extra: small json-able
-        state (data stream, schedule position...)."""
+        state (data stream, schedule position...). With a process group,
+        every rank calls this (DTensor leaves are gathered whole), rank 0
+        writes and the ranks leave together."""
+        flat = _flatten(tree)
+        if not _writer():
+            for leaf in flat.values():
+                if isinstance(leaf, DTensor):
+                    leaf.full_tensor()  # the writer's gather, joined
+            dist.barrier()
+            return
         tmp = self.dir / f"step_{step:08d}.tmp"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        flat = _flatten(tree)
         manifest = {"step": step, "n_leaves": len(flat), "leaves": [], "extra": extra or {}}
         for i, (name, leaf) in enumerate(flat.items()):
             fname = f"leaf_{i:05d}.npy"
@@ -122,12 +149,15 @@ class CheckpointManager:
             shutil.rmtree(final)
         tmp.rename(final)  # atomic on POSIX
         self._prune()
+        if dist.is_initialized():
+            dist.barrier()
 
     def restore(self, step: int | None, like_tree, *, device="cuda"):
         """(tree, extra, step): the checkpoint at `step` (the latest if None)
-        in `like_tree`'s structure, its leaves on `device`. Raises
-        ValueError unless the checkpoint holds exactly `like_tree`'s leaf
-        names, shapes and dtypes."""
+        in `like_tree`'s structure, its leaves on `device`, a DTensor leaf
+        of `like_tree` in its layout (every rank reads the host arrays).
+        Raises ValueError unless the checkpoint holds exactly `like_tree`'s
+        leaf names, shapes and dtypes."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()

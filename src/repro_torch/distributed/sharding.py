@@ -40,8 +40,9 @@ import dataclasses
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
+from ..launch.mesh import MeshShape
 from ..models.config import ModelConfig
 from ..models.quant import STACKED
 
@@ -173,9 +174,8 @@ class ShardingRules:
     # Decode-cache layout: "seq" shards the KV sequence dim over model,
     # "heads" shards KV heads (falls back to seq when kv % axis != 0).
     cache_layout: str = "seq"
-    # Sequence-parallel residual stream (an activation constraint of the
-    # reference's act.py, not ported yet: ROADMAP.md, 'Modules to port',
-    # item 3b).
+    # Sequence-parallel residual stream: `act.shard(x, "residual")` splits
+    # the sequence dim over "model" where its size divides it.
     seq_shard_residual: bool = False
     # 2D ("data"+"model") tensor parallelism for serving (hillclimb option).
     serve_2d_tp: bool = False
@@ -346,3 +346,48 @@ def cache_pspecs(cfg: ModelConfig, caches: list, mesh, rules: ShardingRules) -> 
         return _unstack(rule(prefix, (n_layers, *tree.shape)))
 
     return [walk(layer, "") for layer in caches]
+
+
+# ---------------------------------------------------------------------------
+# Laying a model, its batch and its caches out over a DeviceMesh
+# ---------------------------------------------------------------------------
+def _distribute(t: torch.Tensor, mesh, spec: tuple):
+    """`t`, the same on every rank, as a DTensor of `spec` over `mesh`: each
+    rank keeps its own shard and nothing is sent (on `meta` too)."""
+    return distribute_tensor(t, mesh, to_placements(mesh, spec), src_data_rank=None)
+
+
+def distribute_params(params: nn.Module, mesh, specs: dict) -> nn.Module:
+    """Lay every parameter of `params` (a `ParamTree`) out by `specs`
+    ({name: spec}, `param_pspecs`), in place: each leaf becomes a DTensor
+    parameter under the same module and name, with its `requires_grad`.
+    Every rank must hold the same values (one seed). Returns `params`."""
+    modules = dict(params.named_modules())
+    for name, p in list(params.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        d = _distribute(p.detach(), mesh, specs[name])
+        setattr(modules[owner], leaf, nn.Parameter(d, requires_grad=p.requires_grad))
+    return params
+
+
+def distribute_tree(tree, mesh, specs):
+    """A tree of tensors (dicts and lists) laid out by the congruent tree
+    of specs, as new DTensors."""
+    if isinstance(tree, torch.Tensor):
+        return _distribute(tree, mesh, specs)
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, mesh, specs[k]) for k, v in tree.items()}
+    return [distribute_tree(v, mesh, s) for v, s in zip(tree, specs, strict=True)]
+
+
+def distribute_batch(batch: dict, mesh, rules: ShardingRules) -> dict:
+    """Every leaf of a batch (`[B, ...]`, the same global batch on every
+    rank) over the batch axes, replicated where B does not divide them
+    (`batch_pspec_for`)."""
+    shape = MeshShape.of(mesh)
+    return {k: _distribute(t, mesh, batch_pspec_for(shape, rules, t.shape[0])) for k, t in batch.items()}
+
+
+def distribute_caches(cfg: ModelConfig, caches: list, mesh, rules: ShardingRules) -> list:
+    """The decode caches (a dict a layer) laid out by `cache_pspecs`."""
+    return distribute_tree(caches, mesh, cache_pspecs(cfg, caches, MeshShape.of(mesh), rules))

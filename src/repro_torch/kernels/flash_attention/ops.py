@@ -12,7 +12,9 @@ The kernel is a dispatcher op, `torch.ops.repro_torch.flash_attention(q, k,
 v, causal, window, q_offset)` (`torch.library.custom_op`), so PyTorch's
 dispatch modes see it as one op:
 - its implementation is the kernel launch (`_launch`), which raises for a
-  tensor that is not on a CUDA device;
+  tensor that is not on a CUDA device; on CPU tensors it is the plain
+  route (`_plain`), which the op reaches only from a CPU `DTensor` (a
+  mesh of gloo ranks): plain CPU tensors take the plain route directly;
 - its fake implementation returns a tensor of q's shape, dtype and layout
   and runs nothing, so a step traces on `meta` tensors (the dry run,
   `launch/dryrun.py`);
@@ -20,9 +22,16 @@ dispatch modes see it as one op:
   `torch.utils.flop_counter`: the two products of every (query, key) pair,
   which is what both plain routes dispatch (`attention_chunked` visits
   every chunk and skips none);
-- its autograd is registered with it (below).
-The wrapper sends CUDA and `meta` tensors to the op; a CUDA call is
-validated and its library loaded before the dispatcher sees it.
+- its autograd is registered with it (below);
+- its sharding rule is registered with DTensor (`_flash_sharding`): on
+  every mesh dim q, k, v and the output are all split on the batch, all
+  split on the heads (only where the split keeps each rank's q heads
+  over its own kv heads), or all replicated, so the kernel runs on each
+  rank's local tensors and DTensor redistributes any other layout first.
+The wrapper sends CUDA and `meta` tensors and every `DTensor` to the op. A plain CUDA call is validated and its library loaded before the
+dispatcher sees it (and validated again in the launch); a DTensor call
+is validated once, on each rank's local tensors, in the launch: a
+DTensor's own strides are global and it has no data pointer.
 
 Gradients. The JAX package has no backward kernel: it trains on its jnp
 path, which XLA differentiates. The op's backward is
@@ -39,9 +48,13 @@ route is plain PyTorch, which autograd differentiates directly.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from .. import _build
 from ...obs.trace import span
@@ -180,6 +193,19 @@ def _flash_op(q, k, v, causal, window, q_offset):
     return _launch(q, k, v, causal, window, q_offset)
 
 
+def _plain(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
+    """The CPU route: `attention_ref`, streaming past `_CHUNKED_THRESHOLD`."""
+    if q.shape[2] * k.shape[2] > _CHUNKED_THRESHOLD:
+        return attention_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+@_flash_op.register_kernel("cpu")
+def _flash_cpu(q, k, v, causal, window, q_offset):
+    """The op on CPU tensors (a CPU DTensor's local tensors): the plain route."""
+    return _plain(q, k, v, causal, window, q_offset)
+
+
 @_flash_op.register_fake
 def _flash_fake(q, k, v, causal, window, q_offset):
     """q's shape, dtype and layout, after the launch rules that need no data."""
@@ -191,16 +217,69 @@ def _setup_context(ctx, inputs, output):
     q, k, v, causal, window, q_offset = inputs
     ctx.save_for_backward(q, k, v)
     ctx.attn = (causal, window, q_offset)
+    # A DTensor call ran the kernel on local tensors laid out as its output.
+    ctx.placements = output.placements if isinstance(output, DTensor) else None
 
 
 def _flash_op_backward(ctx, do):
     q, k, v = ctx.saved_tensors
     causal, window, q_offset = ctx.attn
-    dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal, window=window, q_offset=q_offset)
-    return dq, dk, dv, None, None, None
+    if ctx.placements is None:
+        dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal, window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+    # Every (batch, head) slab of attention is independent: each rank runs
+    # the plain backward on its local slabs, in the layout the forward ran.
+    mesh, pl = q.device_mesh, ctx.placements
+    local = [t.redistribute(mesh, pl).to_local() for t in (q, k, v, do)]
+    grads = flash_attention_backward(*local, causal=causal, window=window, q_offset=q_offset)
+    return (*(DTensor.from_local(g, mesh, pl, run_check=False, shape=t.shape, stride=_contiguous(t.shape))
+              for g, t in zip(grads, (q, k, v))), None, None, None)
+
+
+def _contiguous(shape) -> tuple:
+    """Row-major strides of `shape` (the plain backward's gradients are
+    contiguous; a batch split may be uneven, so the global shape is given)."""
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.append(n)
+        n *= size
+    return tuple(reversed(stride))
 
 
 _flash_op.register_autograd(_flash_op_backward, setup_context=_setup_context)
+
+
+def _heads_split_ok(h: int, kv: int, mesh_sizes) -> bool:
+    """True iff some set of mesh dims can split the heads and every set
+    that DTensor would let split the Kv heads (a product n <= Kv) divides
+    both H and Kv: each rank then holds H/n query heads over exactly its
+    Kv/n kv heads, the grouping h // (H // Kv) the kernel applies to its
+    local heads."""
+    dims = [s for s in mesh_sizes if s > 1]
+    ok = False
+    for mask in range(1, 1 << len(dims)):
+        n = math.prod(s for i, s in enumerate(dims) if mask >> i & 1)
+        if n > kv:
+            continue  # DTensor splits no dim over more ranks than it has rows
+        if h % n or kv % n:
+            return False
+        ok = True
+    return ok
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _flash_sharding(q, k, v, causal, window, q_offset):
+    """The op's placements on one mesh dim, output first: q, k, v and the
+    output all Shard(0) (batch), all Shard(1) (heads, where
+    `_heads_split_ok`), or all Replicate(). A query split on heads beside
+    replicated keys is never offered: each rank's kernel would pair its
+    local query head h with local kv head h // (H_local // Kv), another
+    kv head than the global grouping's."""
+    none = [None, None, None]
+    out = [([Replicate()], [Replicate()] * 3 + none), ([Shard(0)], [Shard(0)] * 3 + none)]
+    if _heads_split_ok(q.shape[1], k.shape[1], q.mesh.shape):
+        out.append(([Shard(1)], [Shard(1)] * 3 + none))
+    return out
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
@@ -220,12 +299,17 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Softmax attention, q head h against kv head h // (H // Kv); the
-    output has q's shape, dtype and layout. Differentiable on both routes."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        if q.shape[2] * k.shape[2] > _CHUNKED_THRESHOLD:
-            return attention_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
-        return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if q.device.type != "meta":
+    output has q's shape, dtype and layout. Differentiable on both routes.
+    A CPU DTensor goes through the op, whose sharding rule lays it out and
+    whose CPU implementation runs the plain route on each rank's local
+    tensors."""
+    plain = not any(isinstance(t, DTensor) for t in (q, k, v))
+    if plain and q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return _plain(q, k, v, causal, window, q_offset)
+    if plain and q.device.type != "meta":
+        # A plain CUDA call is checked, and its library loaded, before the
+        # dispatcher sees it; a DTensor call is checked on each rank's local
+        # tensors, in the launch.
         _check(q, k, v, window, q_offset)
         _build.load("flash_attention")
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, q_offset)

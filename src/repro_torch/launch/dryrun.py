@@ -3,7 +3,7 @@ no hardware (the JAX package's `launch/dryrun.py`).
 
 For every (architecture x input-shape) cell and each production mesh
 (single-pod 16x16, multi-pod 2x16x16), the step the cell runs (train,
-prefill or decode) is run once on `meta` tensors, its input specs
+prefill or decode) is run on `meta` tensors, its input specs
 (`launch/steps.py`) with the sharding rules' specs
 (`distributed/sharding.py`), under `launch/op_cost.py`, and the record
 holds:
@@ -15,9 +15,28 @@ holds:
   * per_device_argument_gib and memory.argument_bytes: parameters,
     optimizer state, caches and batch per device under their specs, as
     JAX computes them.
-  * memory.temp_bytes: peak_bytes minus the arguments, on a one-device mesh
-    only; JAX's comes from the SPMD partitioner, which the port lacks.
-  * collective_bytes: null; the port has no model-parallel mesh yet.
+  * flops_per_device, collective_bytes ({JAX's kind name: result bytes})
+    and memory.peak_bytes / memory.temp_bytes (the peak less the
+    arguments), per device: on a mesh of more than one device the step
+    runs a second time, inside `launch.mesh.fake_mesh` (a `fake` process
+    group of the mesh's size), on DTensors laid out by the specs and under
+    `activation_sharding`, and these are rank 0's counts; JAX reads them
+    out of the SPMD partitioner's HLO. On a one-device mesh they are the
+    global counts and collective_bytes is {}.
+
+These per-device numbers are DTensor's: the layouts it picks for the ops
+between `shard`'s constraints, which are not the SPMD partitioner's (only
+decode's per-device FLOPs equal JAX's; PERF.md, open questions). DTensor
+on the fake group's CPU mesh re-lays a Shard(i) -> Shard(j) redistribute
+as all-gather + chunk (gloo has no all-to-all), where a CUDA mesh runs an
+all-to-all: such bytes count as "all-gather".
+
+A failure of the DTensor trace leaves the cell "ok" with its global
+numbers and records the failure as `mesh_error`, the per-device numbers
+null (never zero). `KNOWN_MESH_ERRORS` lists the cells whose trace fails
+on an op DTensor has no sharding rule for (ROADMAP.md section 3); any
+other mesh error is a fault. A failure of the global trace fails the cell
+(status "error").
 
 The run stays on the host by design, as JAX's runs on fake CPU devices: it
 takes no device and allocates nothing on the card.
@@ -36,6 +55,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import time
 import traceback
 from pathlib import Path
@@ -48,17 +68,36 @@ from ..distributed.sharding import (
     batch_axes_size,
     batch_pspec_for,
     cache_pspecs,
+    distribute_params,
+    distribute_tree,
     param_pspecs,
 )
 from ..models.config import SHAPES, ShapeConfig, shape_applicable
 from . import op_cost
 from . import steps as St
-from .mesh import MeshShape, make_debug_mesh, make_production_mesh
+from .mesh import MeshShape, fake_mesh, make_debug_mesh, make_production_mesh
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
-_MESH_REASON = ("needs the SPMD partitioner: the port has no model-parallel mesh yet "
-                "(ROADMAP.md, Modules to port, item 3b)")
+# (arch, shape) -> the op DTensor has no sharding rule for, which ends the
+# cell's DTensor trace on both production meshes: MoE's dispatch.
+KNOWN_MESH_ERRORS = {
+    (arch, shape): "aten.searchsorted.Tensor"
+    for arch, shapes in (("mixtral-8x22b", ("train_4k", "prefill_32k", "decode_32k", "long_500k")),
+                         ("qwen2-moe-a2.7b", ("train_4k", "prefill_32k", "decode_32k")))
+    for shape in shapes
+}
+_MISSING_RULE = re.compile(r"Operator (\S+) does not have a sharding strategy registered")
+
+
+def missing_rule(error: str | None) -> str | None:
+    """The op a mesh error says DTensor has no sharding rule for, else None."""
+    m = _MISSING_RULE.search(error or "")
+    return m.group(1) if m else None
+
+
+ALL_TO_ALL_NOTE = ("all-to-all: DTensor on the fake group's CPU mesh re-lays Shard(i) -> "
+                   "Shard(j) as all-gather + chunk, counted as all-gather")
 
 
 def _shape(shape: str | ShapeConfig) -> ShapeConfig:
@@ -69,10 +108,12 @@ def build_cell(arch: str, shape_name: str | ShapeConfig, mesh: MeshShape, rules:
                microbatches: int = 1, vocab_chunks: int = 0,
                cache_layout: str | None = None, moe_groups: int = -1,
                seq_shard: bool = False, remat: bool | None = None,
-               no_fsdp: bool = False, quant_int8: bool = False):
+               no_fsdp: bool = False, quant_int8: bool = False, device_mesh=None):
     """(step_fn, arg_specs, arg_pspecs) for a cell: the step, its arguments
     as `meta` tensors (a tuple) and their partition specs (a list of
-    congruent trees; a spec itself is a tuple)."""
+    congruent trees; a spec itself is a tuple). With `device_mesh` (a
+    `DeviceMesh` of `mesh`'s names and sizes) the arguments are DTensors
+    laid out by their specs and the step runs over that mesh."""
     cfg = get_config(arch)
     if vocab_chunks:
         cfg = dataclasses.replace(cfg, vocab_chunking=vocab_chunks)
@@ -90,14 +131,24 @@ def build_cell(arch: str, shape_name: str | ShapeConfig, mesh: MeshShape, rules:
     def batch_of(specs):
         return {k: batch_pspec_for(mesh, rules, shape.global_batch) for k in specs}
 
+    on_mesh = {} if device_mesh is None else {"mesh": device_mesh, "rules": rules}
+
+    def laid_out(args, pspecs):
+        """The arguments as DTensors over `device_mesh` (as they are without one)."""
+        if device_mesh is None:
+            return args
+        return tuple(distribute_params(a, device_mesh, sp) if isinstance(a, torch.nn.Module)
+                     else distribute_tree(a, device_mesh, sp) for a, sp in zip(args, pspecs, strict=True))
+
     if shape.kind == "train":
-        step = St.make_train_step(cfg, microbatches=microbatches)
+        step = St.make_train_step(cfg, microbatches=microbatches, **on_mesh)
         p_specs = St.param_specs(cfg)
         o_specs = St.opt_specs(cfg)
         b_specs = St.batch_specs(cfg, shape)
         p_sh = param_pspecs(cfg, p_specs, mesh, rules)
         o_sh = {"mu": p_sh, "nu": p_sh, "step": ()}
-        return step, (p_specs, o_specs, b_specs), [p_sh, o_sh, batch_of(b_specs)]
+        pspecs = [p_sh, o_sh, batch_of(b_specs)]
+        return step, laid_out((p_specs, o_specs, b_specs), pspecs), pspecs
 
     scfg = St.serve_config(cfg)
     if quant_int8:
@@ -107,12 +158,13 @@ def build_cell(arch: str, shape_name: str | ShapeConfig, mesh: MeshShape, rules:
     p_specs = St.param_specs(scfg)
     p_sh = param_pspecs(scfg, p_specs, mesh, rules)
     if shape.kind == "prefill":
-        step = St.make_prefill_step(scfg, shape.seq_len)
+        step = St.make_prefill_step(scfg, shape.seq_len, **on_mesh)
         b_specs = St.batch_specs(scfg, shape)
-        return step, (p_specs, b_specs), [p_sh, batch_of(b_specs)]
+        pspecs = [p_sh, batch_of(b_specs)]
+        return step, laid_out((p_specs, b_specs), pspecs), pspecs
 
     # decode
-    serve_step = St.make_serve_step(scfg)
+    serve_step = St.make_serve_step(scfg, **on_mesh)
 
     def step(params, caches, token, pos):
         # JAX's step takes the position as an int32 scalar; the port's as an
@@ -125,7 +177,9 @@ def build_cell(arch: str, shape_name: str | ShapeConfig, mesh: MeshShape, rules:
     pos_spec = torch.empty((), dtype=torch.int32, device="meta")
     c_sh = cache_pspecs(scfg, c_specs, mesh, rules)
     t_sh = batch_pspec_for(mesh, rules, shape.global_batch)
-    return step, (p_specs, c_specs, t_spec, pos_spec), [p_sh, c_sh, t_sh, ()]
+    pspecs = [p_sh, c_sh, t_sh, ()]
+    args = laid_out((p_specs, c_specs, t_spec), pspecs[:3]) + (pos_spec,)
+    return step, args, pspecs
 
 
 def _leaves(tree) -> list:
@@ -194,46 +248,54 @@ def run_cell(arch: str, shape_name: str | ShapeConfig, *, multi_pod: bool = Fals
         return record
 
     rules = ShardingRules(pod_axis="pod" if "pod" in mesh.axis_names else None)
+    kw = dict(microbatches=microbatches, vocab_chunks=vocab_chunks, cache_layout=cache_layout,
+              moe_groups=moe_groups, seq_shard=seq_shard, remat=remat, no_fsdp=no_fsdp,
+              quant_int8=quant_int8)
     t0 = time.time()
     try:
-        step, arg_specs, arg_pspecs = build_cell(
-            arch, shape, mesh, rules, microbatches=microbatches,
-            vocab_chunks=vocab_chunks, cache_layout=cache_layout,
-            moe_groups=moe_groups, seq_shard=seq_shard, remat=remat,
-            no_fsdp=no_fsdp, quant_int8=quant_int8,
-        )
+        step, arg_specs, arg_pspecs = build_cell(arch, shape, mesh, rules, **kw)
         t_build = time.time() - t0
         cost = op_cost.analyze(step, *arg_specs)
         t_trace = time.time() - t0 - t_build
         arg_bytes = _sharded_arg_bytes(arg_specs, arg_pspecs, mesh)
         warnings = list(cost["warnings"])
-        if seq_shard:
-            warnings.append("seq_shard: an activation constraint (act.py); " + _MESH_REASON)
-        one_device = mesh.size == 1
-        memory = {
-            "argument_bytes": arg_bytes,
-            "peak_bytes": float(cost["peak_bytes"]),
-            "temp_bytes": float(cost["peak_bytes"] - arg_bytes) if one_device else None,
-        }
-        if not one_device:
-            memory["temp_bytes_reason"] = "per-device temporaries " + _MESH_REASON
+        per_device, mesh_error = cost, None
+        if mesh.size > 1:
+            warnings.append(ALL_TO_ALL_NOTE)
+            try:
+                with fake_mesh(mesh) as device_mesh:
+                    step_d, args_d, _ = build_cell(arch, shape, mesh, rules, device_mesh=device_mesh, **kw)
+                    per_device = op_cost.analyze(step_d, *args_d)
+            except Exception as e:  # the global numbers stand; the record names the failure
+                per_device, mesh_error = None, f"{type(e).__name__}: {e}"
+                record.update(mesh_error=mesh_error, mesh_trace=traceback.format_exc()[-2000:])
+        t_mesh = time.time() - t0 - t_build - t_trace
+
+        def dev(value):
+            return None if per_device is None else value(per_device)
+
         record.update(
             status="ok",
             build_s=round(t_build, 2),
             trace_s=round(t_trace, 2),
+            mesh_trace_s=round(t_mesh, 2),
             flops=cost["flops"],
             bytes_accessed=cost["bytes"],
             peak_bytes=cost["peak_bytes"],
+            flops_per_device=dev(lambda c: c["flops"]),
+            bytes_accessed_per_device=dev(lambda c: c["bytes"]),
             op_warnings=warnings,
-            memory=memory,
-            collective_bytes=None,
-            collective_bytes_reason="collectives " + _MESH_REASON,
+            memory={
+                "argument_bytes": arg_bytes,
+                "peak_bytes": dev(lambda c: float(c["peak_bytes"])),
+                "temp_bytes": dev(lambda c: float(c["peak_bytes"] - arg_bytes)),
+            },
+            collective_bytes=dev(lambda c: {k: float(v) for k, v in c["collectives"].items()}),
             per_device_argument_gib=round(arg_bytes / 2**30, 3),
             n_devices=mesh.size,
         )
     except Exception as e:
-        record.update(status="error", error=f"{type(e).__name__}: {e}",
-                      trace=traceback.format_exc()[-2000:])
+        record.update(status="error", error=f"{type(e).__name__}: {e}", trace=traceback.format_exc()[-2000:])
     if save:
         _save(record, out_dir)
     return record
@@ -278,7 +340,7 @@ def main(argv=None):
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
-    n_ok = n_skip = n_err = 0
+    n_ok = n_skip = n_err = n_mesh_err = 0
     for arch, shape in cells:
         for mp in meshes:
             r = run_cell(
@@ -293,20 +355,23 @@ def main(argv=None):
             n_ok += status == "ok"
             n_skip += status == "skipped"
             n_err += status == "error"
+            n_mesh_err += "mesh_error" in r
             if status == "ok":
+                per_device = (f"mesh_error={r['mesh_error'][:160]}" if "mesh_error" in r
+                              else f"coll={sum(r['collective_bytes'].values()) / 2**20:.1f}MiB")
                 print(
                     f"OK    {arch:22s} {shape:12s} {r['mesh']:8s} "
                     f"trace={r['trace_s']:7.1f}s flops={r['flops']:.3e} "
                     f"args/dev={r['per_device_argument_gib']:.2f}GiB "
-                    f"peak={r['peak_bytes'] / 2**30:.1f}GiB coll=n/a",
+                    f"peak={r['peak_bytes'] / 2**30:.1f}GiB {per_device}",
                     flush=True,
                 )
             elif status == "skipped":
                 print(f"SKIP  {arch:22s} {shape:12s} {r['mesh']:8s} {r['reason'][:60]}", flush=True)
             else:
                 print(f"ERROR {arch:22s} {shape:12s} {r['mesh']:8s} {r['error'][:200]}", flush=True)
-    print(f"\ndry-run complete: {n_ok} ok, {n_skip} skipped, {n_err} errors")
-    return 0 if n_err == 0 else 1
+    print(f"\ndry-run complete: {n_ok} ok, {n_skip} skipped, {n_err} errors, {n_mesh_err} mesh errors")
+    return 0 if n_err == n_mesh_err == 0 else 1
 
 
 if __name__ == "__main__":

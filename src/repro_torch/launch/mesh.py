@@ -9,6 +9,12 @@ Production target of the reference: TPU v5e pods, 16x16 = 256 chips a pod.
   single pod:  (data=16, model=16)
   multi-pod:   (pod=2, data=16, model=16)    -- "pod" is the DCN-class axis
 
+Model parallelism runs over `build_mesh(model_parallel)`, a ("data",
+"model") `DeviceMesh` over the default group (the train CLI under a
+launcher); the dry run counts a production mesh's per-device cost inside
+`fake_mesh(MeshShape)`, a `fake` process group of the mesh's size in one
+process (no device, no data moved).
+
 The fleet control plane uses a real, 1-D mesh (`make_fleet_mesh`): a
 `DeviceMesh` named ("fleet",) over the ranks of the default process group,
 one process a device as PyTorch runs them (`python -m torch.distributed.run
@@ -19,6 +25,7 @@ the environment. Importing this module touches no device and no group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -53,6 +60,11 @@ class MeshShape:
     @property
     def name(self) -> str:
         return "x".join(map(str, self.sizes))
+
+    @classmethod
+    def of(cls, mesh) -> "MeshShape":
+        """The names and sizes of a `DeviceMesh`."""
+        return cls(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
@@ -152,3 +164,48 @@ def make_fleet_mesh(n_devices: int | None = None, *, device: str | torch.device 
 
         _FLEET_MESHES[key] = DeviceMesh(dev.type, list(range(n)), mesh_dim_names=(FLEET_AXIS,))
     return _FLEET_MESHES[key]
+
+
+def build_mesh(model_parallel: int, device: str | torch.device = "cuda"):
+    """A ("data", "model") `DeviceMesh` of shape (world // mp, mp) over the
+    default process group on `device` (JAX's train CLI mesh), the world
+    being one process without a group. Raises ValueError unless
+    `model_parallel` divides the world (JAX clamps it to the device count;
+    here no run quietly uses fewer devices than asked for), or, on `cuda`,
+    for more ranks than visible GPUs."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(
+            f"--model-parallel {model_parallel} does not divide the world of {world} rank(s); "
+            "launch a multiple of it (python -m torch.distributed.run --nproc-per-node N)"
+        )
+    fleet_ranks(world, device=dev)  # NCCL takes one GPU a rank
+    if not dist.is_initialized():
+        raise ValueError(
+            "build_mesh needs an initialised process group (init_from_env under a launcher, or "
+            "torch.distributed.init_process_group); one process runs without a mesh"
+        )
+    ranks = torch.arange(world).reshape(world // model_parallel, model_parallel)
+    return DeviceMesh(dev.type, ranks, mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: MeshShape):
+    """A `DeviceMesh` of `shape`'s names and sizes over a `fake` process
+    group of `shape.size` ranks in this one process, as its rank 0: DTensor
+    computes every rank's layout and dispatches the collectives, which move
+    nothing. The group is destroyed on exit, also on an error. Refuses
+    (RuntimeError) when a process group is already initialised."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=shape.size)
+    try:
+        yield init_device_mesh("cpu", shape.sizes, mesh_dim_names=shape.axis_names)
+    finally:
+        dist.destroy_process_group()

@@ -19,8 +19,16 @@ the dry run) or on the card. `analyze` returns JAX's keys:
                its allocation until it is released (a weakref finalizer on
                the storage), as a caching allocator sees the step's own
                tensors.
-  collectives  {}: the port has no model-parallel mesh yet.
+  collectives  {JAX's kind name: result bytes} of every collective the
+               step makes (`_COLLECTIVES`): empty for plain tensors.
   warnings     what the count cannot see.
+
+On `DTensor`s (a step over a `DeviceMesh`, `launch.mesh.fake_mesh`) the
+count is one rank's: `OpCost` hands an op on DTensors back to DTensor, as
+torch's `CommDebugMode` does, and counts the local ops and collectives
+DTensor then dispatches; the ops DTensor runs on fake tensors to
+propagate shapes are not counted. Under a `fake` process group rank 0
+holds the largest shard of an uneven split.
 
 The layers are a Python loop, so there is no loop trip count to scale: a
 model of L layers dispatches L layers' ops.
@@ -31,6 +39,8 @@ import weakref
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -47,14 +57,32 @@ _METADATA_OPS = {
 if hasattr(torch.ops.aten, "sym_is_contiguous"):
     _METADATA_OPS.add(torch.ops.aten.sym_is_contiguous.default)
 
-COLLECTIVES_WARNING = (
-    "collectives: none counted; the port has no model-parallel mesh yet "
-    "(ROADMAP.md, Modules to port, item 3b)"
-)
+# The collectives DTensor dispatches, by the kind name JAX's dry run reads
+# out of its HLO (`repro.launch.dryrun.parse_collective_bytes`).
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "send": "collective-permute",
+    "recv": "collective-permute",
+    "permute_tensor": "collective-permute",
+}
+# Functional-collective plumbing that moves no data.
+_COLLECTIVE_PLUMBING = {"wait_tensor", "_wrap_tensor_autograd"}
+_COLLECTIVE_NAMESPACES = {"_c10d_functional", "c10d_functional", "_dtensor", "c10d"}
 
 
 def _tensors(tree) -> list[torch.Tensor]:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -70,6 +98,7 @@ class OpCost(TorchDispatchMode):
         super().__init__()
         self.flops = 0
         self.bytes = 0
+        self.collectives: dict[str, int] = {}
         self.live = 0
         self.peak = 0
         self._storages: dict[int, int] = {}
@@ -83,7 +112,7 @@ class OpCost(TorchDispatchMode):
     def track(self, tree) -> None:
         for x in tree_flatten(tree)[0]:
             for t in (list(x.parameters()) + list(x.buffers()) if isinstance(x, nn.Module) else _tensors(x)):
-                self._hold(t)
+                self._hold(_local(t))
 
     def _hold(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -103,6 +132,12 @@ class OpCost(TorchDispatchMode):
         kwargs = kwargs or {}
         if func in _METADATA_OPS:
             return NotImplemented
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(isinstance(t, FakeTensor) for t in _tensors((args, kwargs))):
+            return func(*args, **kwargs)  # DTensor propagating shapes: no work on the device
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            return self._collective(func, args, kwargs)
         if func not in self._no_decomposition and func is not torch.ops.prim.device.default:
             with self:
                 r = func.decompose(*args, **kwargs)
@@ -110,12 +145,30 @@ class OpCost(TorchDispatchMode):
                 return r
             self._no_decomposition.add(func)
         out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in _tensors(out)):
+            return out  # a factory of DTensor's shape propagation
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         outs = _tensors(out)
         if not func.is_view:
             self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs))) + sum(_nbytes(t) for t in outs)
+        for t in outs:
+            self._hold(t)
+        return out
+
+    def _collective(self, func, args, kwargs):
+        """A collective adds its result bytes under its kind; the plumbing
+        around one passes. Anything else in those namespaces raises."""
+        name = func._overloadpacket.__name__
+        out = func(*args, **kwargs)
+        if name in _COLLECTIVE_PLUMBING:
+            return out
+        if name not in _COLLECTIVES:
+            raise NotImplementedError(f"op_cost: collective {func} has no kind in _COLLECTIVES")
+        kind = _COLLECTIVES[name]
+        outs = _tensors(out)
+        self.collectives[kind] = self.collectives.get(kind, 0) + sum(_nbytes(t) for t in outs)
         for t in outs:
             self._hold(t)
         return out
@@ -127,5 +180,5 @@ def analyze(fn, *args, **kwargs) -> dict:
     with OpCost() as cost:
         cost.track((args, kwargs))
         out = fn(*args, **kwargs)
-    return {"flops": cost.flops, "bytes": cost.bytes, "peak_bytes": cost.peak, "collectives": {},
-            "warnings": [COLLECTIVES_WARNING], "out": out}
+    return {"flops": cost.flops, "bytes": cost.bytes, "peak_bytes": cost.peak,
+            "collectives": dict(cost.collectives), "warnings": [], "out": out}

@@ -7,7 +7,11 @@ prefill_step: full-prompt forward building the caches + last logits
 serve_step  : one-token decode against the caches
 
 The train step runs where the parameters live; `torch.autograd.grad` takes
-the place of `jax.value_and_grad`.
+the place of `jax.value_and_grad`. Given a `DeviceMesh` (`mesh=`, with
+`rules=`), each step runs inside `distributed.act.activation_sharding` on
+parameters, optimizer state, batch and caches laid out as DTensors
+(`distributed.sharding.distribute_params` and friends), as JAX's launchers
+run its steps under `activation_sharding`.
 
 The input specs (`batch_specs`, `param_specs`, `opt_specs`, `cache_specs`)
 are `meta` tensors: JAX's `ShapeDtypeStruct` stand-ins, with its shapes
@@ -17,10 +21,14 @@ JAX stacks the layers on axis 0; `models/convert.py`). The dry run
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
+from ..distributed.act import activation_sharding
+from ..distributed.sharding import ShardingRules
 from ..models import model as M
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.quant import quantize_params
@@ -84,20 +92,48 @@ def value_and_grad(cfg: ModelConfig, params: M.ParamTree, batch: dict):
     return loss.detach(), dict(zip(leaves, grads))
 
 
+def _in_mesh(mesh, rules):
+    """The context a step runs in: `activation_sharding` over `mesh`
+    (rules with a pod axis where the mesh has one, unless given), or none."""
+    if mesh is None:
+        return contextlib.nullcontext
+    if rules is None:
+        rules = ShardingRules(pod_axis="pod" if "pod" in mesh.mesh_dim_names else None)
+    return lambda: activation_sharding(mesh, rules)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor metric as the plain tensor every rank agrees on."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, grad_clip: float = 1.0,
-                    microbatches: int = 1):
+                    microbatches: int = 1, mesh=None, rules: ShardingRules | None = None):
     """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}). `params` (a `ParamTree`) is updated in place and
     returned; the optimizer state is new, as JAX's. With `microbatches` >
     1 every batch leaf is cut into that many slices along axis 0, their
     gradients summed in fp32 in order and divided by the count, and the
-    loss is the mean of theirs."""
+    loss is the mean of theirs. On a mesh, a batch split over the data
+    axes is cut rank by rank (microbatch i holds slice i of every rank's
+    rows), each gradient takes its parameter's layout, and the metrics
+    are plain tensors."""
+    in_mesh = _in_mesh(mesh, rules)
 
     def slice_mb(i, t):
+        if isinstance(t, DTensor) and any(isinstance(p, Shard) and p.dim == 0 for p in t.placements):
+            local = t.to_local()
+            mb = local.shape[0] // microbatches
+            return DTensor.from_local(local[i * mb:(i + 1) * mb], t.device_mesh, t.placements,
+                                      run_check=False)
         mb = t.shape[0] // microbatches
         return t[i * mb:(i + 1) * mb]
 
     def train_step(params, opt_state, batch):
+        with in_mesh():
+            return step_in_context(params, opt_state, batch)
+
+    def step_in_context(params, opt_state, batch):
         if microbatches > 1:
             gsum, losses = None, []
             for i in range(microbatches):
@@ -109,27 +145,35 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, grad_clip: float = 1.
             loss = torch.mean(torch.stack(losses))
         else:
             loss, grads = value_and_grad(cfg, params, batch)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
         leaves = {n: p.detach() for n, p in params.named_parameters()}
+        if mesh is not None:
+            grads = {n: g.redistribute(leaves[n].device_mesh, leaves[n].placements) for n, g in grads.items()}
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
         new_params, new_opt = adamw_update(grads, opt_state, leaves, lr)
         with torch.no_grad():
             for n, p in leaves.items():
                 p.copy_(new_params[n])
-        return params, new_opt, {"loss": loss, "grad_norm": gnorm}
+        return params, new_opt, {"loss": _full(loss), "grad_norm": _full(gnorm)}
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, total_len: int):
+def make_prefill_step(cfg: ModelConfig, total_len: int, *, mesh=None, rules: ShardingRules | None = None):
+    in_mesh = _in_mesh(mesh, rules)
+
     def prefill_step(params, batch):
-        return M.prefill(cfg, params, batch, total_len)
+        with in_mesh():
+            return M.prefill(cfg, params, batch, total_len)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, mesh=None, rules: ShardingRules | None = None):
+    in_mesh = _in_mesh(mesh, rules)
+
     def serve_step(params, caches, token, pos):
-        return M.decode_step(cfg, params, caches, token, pos)
+        with in_mesh():
+            return M.decode_step(cfg, params, caches, token, pos)
 
     return serve_step
 

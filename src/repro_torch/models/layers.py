@@ -11,9 +11,9 @@ layouts (per layer):
   norm:  scale [d]
   embed: embed [vocab, d] (+ lm_head [d, vocab], frontend_proj [F, d])
 
-The JAX module's `shard(...)` calls (distributed/act.py) only annotate how
-activations lie on a device mesh; on one device they do nothing, so they
-are dropped here. Full-sequence attention runs the flash kernel wrapper
+`shard(x, kind)` (distributed/act.py) marks JAX's activation points: it
+returns x untouched without an `activation_sharding` context, and lays a
+DTensor out over the mesh under one. Full-sequence attention runs the flash kernel wrapper
 (CUDA kernel on the card, plain version on the CPU); decode attention, the
 projections, the MoE dispatch and expert products and the unembedding are
 plain PyTorch, as they are plain XLA in the JAX package. The embedding
@@ -26,7 +26,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..distributed import vocab
+from ..distributed.act import flatten, grad_in_layout, match_layout, shard, softmax_last, unflatten
 from ..kernels.flash_attention import flash_attention
 from ..obs.trace import span
 from .config import ModelConfig
@@ -120,7 +123,7 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
 
 def _project(x: torch.Tensor, w: torch.Tensor, bias, cd) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) (+ bias) in the compute dtype."""
-    y = torch.matmul(x, w.to(cd).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    y = unflatten(torch.matmul(x, flatten(w.to(cd), 1, -1)), -1, w.shape[1:])
     return y if bias is None else y + bias.to(cd)
 
 
@@ -129,14 +132,13 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
     q = _project(x, p.wq, getattr(p, "bq", None), cd)
     k = _project(x, p.wk, getattr(p, "bk", None), cd)
     v = _project(x, p.wv, getattr(p, "bv", None), cd)
-    return q, k, v
+    return shard(q, "heads"), shard(k, "heads"), shard(v, "heads")
 
 
 def _out_proj(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """einsum("bshk,hkd->bsd", o, wo) in the compute dtype."""
     cd = dtype_of(cfg.compute_dtype)
-    wo = p.wo.to(cd)
-    return torch.matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    return torch.matmul(flatten(o, -2, -1), flatten(p.wo.to(cd), 0, 1))
 
 
 def attention_full(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True):
@@ -147,16 +149,16 @@ def attention_full(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True)
 
     The kernel sees JAX's [B, H, S, hd] layout as transposed views of the
     [B, S, H, hd] projections (it takes strides), and writes its output in
-    the same layout, so the transpose back is free."""
+    the same layout, so the transpose back is free. JAX's "heads_t"
+    constraint applies to those views."""
     q, k, v = _qkv(p, x, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=cfg.sliding_window,
-    )
-    return _out_proj(p, o.transpose(1, 2), cfg), k, v
+    qt, kt, vt = (shard(t.transpose(1, 2), "heads_t") for t in (q, k, v))
+    o = flash_attention(qt, kt, vt, causal=causal, window=cfg.sliding_window)
+    o = shard(o, "heads_t").transpose(1, 2)
+    return shard(_out_proj(p, o, cfg), "residual"), k, v
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -205,7 +207,6 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig
     and value into the caller's cache tensors in place and returns the same
     dict: a caller that needs the old cache keeps a copy.
     """
-    b = x.shape[0]
     cd = dtype_of(cfg.compute_dtype)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     group = h // kv
@@ -217,8 +218,9 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig
     kc, vc = cache["k"], cache["v"]
     c = kc.shape[2]
     slot = pos % c
-    kc[:, :, slot].copy_(k[:, 0])
-    vc[:, :, slot].copy_(v[:, 0])
+    _ring_write(kc, k[:, 0], slot)
+    _ring_write(vc, v[:, 0], slot)
+    kc, vc = shard(kc, "kv_cache"), shard(vc, "kv_cache")
 
     idx = torch.arange(c, device=x.device)
     abs_pos = pos - torch.remainder(pos - idx, c)  # in [pos - C + 1, pos]
@@ -226,12 +228,36 @@ def attention_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig
     if cfg.sliding_window is not None:
         valid &= abs_pos > pos - cfg.sliding_window
 
-    qg = q.reshape(b, kv, group, hd).float()
-    scores = torch.einsum("bkgd,bkcd->bkgc", qg, kc.float()) / math.sqrt(hd)
+    qg = match_layout(unflatten(q[:, 0], 1, (kv, group)), kc, 2).float()  # [B, Kv, G, hd]
+    scores = shard(torch.einsum("bkgd,bkcd->bkgc", qg, kc.float()) / math.sqrt(hd), "decode_scores")
     scores = torch.where(valid, scores, -1e30)
-    w = torch.softmax(scores, dim=-1)
+    w = softmax_last(scores)
     o = torch.einsum("bkgc,bkcd->bkgd", w, vc.float()).to(cd)
-    return _out_proj(p, o.reshape(b, 1, h, hd), cfg), cache
+    return shard(_out_proj(p, flatten(o, 1, 2).unsqueeze(1), cfg), "residual"), cache
+
+
+def _ring_write(cache: torch.Tensor, row: torch.Tensor, slot: int) -> None:
+    """cache[:, :, slot] = row, in place (cache [B, Kv, C, hd], row
+    [B, Kv, hd]). A DTensor cache split on C over some mesh dims (the
+    "seq" layout) is written rank by rank, as the SPMD partitioner writes
+    JAX's dynamic_update_slice: the row is laid out as the cache is, less
+    the C split, and the ranks whose C range holds the slot write it into
+    their local cache."""
+    if not isinstance(cache, DTensor):
+        cache[:, :, slot].copy_(row)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    row_pl = [Replicate() if p == Shard(2) else Shard(p.dim - (p.dim > 2)) if isinstance(p, Shard) else p
+              for p in pl]
+    local_row = row.redistribute(mesh, row_pl).to_local()
+    lo, size = 0, cache.shape[2]  # this rank's C range, split in mesh order
+    for i, p in enumerate(pl):
+        if p == Shard(2):
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            size //= n  # `cache_pspecs` splits C only where the split is even
+            lo += r * size
+    if lo <= slot < lo + size:
+        cache.to_local()[:, :, slot - lo].copy_(local_row)
 
 
 # ---------------------------------------------------------------------------
@@ -278,12 +304,12 @@ def _glu(act, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     act = _act(cfg.mlp_act)
-    h = _matmul(x, p.wi, cd)
+    h = shard(_matmul(x, p.wi, cd), "ffn")
     if is_glu(cfg.mlp_act):
-        h = _glu(act, _matmul(x, p.wg, cd), h)
+        h = _glu(act, shard(_matmul(x, p.wg, cd), "ffn"), h)
     else:
         h = act(h)
-    return _matmul(h, p.wo, cd)
+    return shard(_matmul(h, p.wo, cd), "residual")
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +401,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         groups = 1
     tg = t // groups
     cap = moe_capacity(cfg, tg)
-    xg = x.reshape(groups, tg, d)
-    out = torch.cat([_moe_dispatch_combine(p, xg[g], cfg, cap) for g in range(groups)])
+    xg = shard(x.reshape(groups, tg, d), "moe_groups")
+    out = torch.stack([_moe_dispatch_combine(p, xg[g], cfg, cap) for g in range(groups)])
+    out = shard(out, "moe_groups").reshape(t, d)
     if hasattr(p, "shared"):
         cd = dtype_of(cfg.compute_dtype)
         gate = torch.sigmoid(_matmul(x.reshape(t, d), p.shared_gate, cd).float()).to(cd)
@@ -400,16 +427,19 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gather then cast: equal to JAX's cast-then-gather, without casting
     the whole table on every call. An int8 table is gathered as int8 and
-    only the gathered rows are dequantized."""
+    only the gathered rows are dequantized. A DTensor table split on the
+    vocab is looked up rank by rank (`distributed.vocab.embedding`)."""
     cd = dtype_of(cfg.compute_dtype)
     table = p.embed
     if is_quantized_leaf(table):
         x = (getattr(table, "__q")[tokens].float() * getattr(table, "__s")).to(cd)
+    elif vocab.split(table, 0):
+        x = vocab.embedding(tokens, table).to(cd)
     else:
-        x = F.embedding(tokens, table).to(cd)
+        x = F.embedding(tokens, grad_in_layout(table)).to(cd)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
-    return x
+    return shard(x, "residual")
 
 
 def _weight(w, cd) -> torch.Tensor:
@@ -421,11 +451,15 @@ def embed_frontend(p, feats: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Stub modality frontend: precomputed patch/frame embeddings [B, S, F]
     through the learned projector to [B, S, d]."""
     cd = dtype_of(cfg.compute_dtype)
-    return torch.matmul(feats.to(cd), _weight(p.frontend_proj, cd))
+    return shard(torch.matmul(feats.to(cd), _weight(p.frontend_proj, cd)), "residual")
 
 
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
-    if cfg.tie_embeddings:
-        return torch.matmul(x, _weight(p.embed, cd).T)
-    return torch.matmul(x, _weight(p.lm_head, cd))
+    if not cfg.tie_embeddings:
+        w = _weight(p.lm_head, cd)
+    elif vocab.split(p.embed, 0):
+        w = _weight(p.embed, cd).T
+    else:  # the lookup's gradient is re-laid alike (`embed_tokens`)
+        w = _weight(grad_in_layout(p.embed), cd).T
+    return shard(torch.matmul(x, w), "logits")

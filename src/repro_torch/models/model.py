@@ -39,6 +39,7 @@ them) and an integer position.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -46,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed import act, vocab
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
@@ -258,9 +260,12 @@ def stack_full(blocks, x, cfg: ModelConfig, kind: str, *, causal=True, memory=No
     passes remat=False), each layer is checkpointed: its activations are
     recomputed in the backward pass instead of kept."""
     if cfg.remat and not want_cache and torch.is_grad_enabled():
+        # Under activation_sharding the recompute, which may run on
+        # autograd's device thread, runs in the same context.
+        kw = {"context_fn": lambda: (contextlib.nullcontext(), act.enter_context())} if act.active() else {}
         for p_layer in _layers(blocks, cfg):
             x, _ = checkpoint(_block_full, p_layer, x, cfg, kind, causal=causal, memory=memory,
-                              use_reentrant=False)
+                              use_reentrant=False, **kw)
         return x, None
     caches = []
     for p_layer in _layers(blocks, cfg):
@@ -364,6 +369,8 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     if cfg.vocab_chunking:
         return _chunked_ce(cfg, params.embed, h, targets)
     logits = L.unembed(params.embed, h, cfg).float()
+    if vocab.split(logits, 2):
+        return torch.mean(vocab.cross_entropy(logits, targets))
     lse = torch.logsumexp(logits, dim=-1)
     tl = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - tl)

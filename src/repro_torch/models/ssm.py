@@ -21,6 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from ..distributed.act import flatten, on_local_slabs, shard, spec_here, unflatten
 from ..obs.trace import span
 from .config import ModelConfig
 from .layers import _dense_init, _matmul, dtype_of, init_norm, rmsnorm
@@ -155,6 +158,24 @@ def ssd_chunked(xs, dt, A, B, C, chunk: int, init_state=None):
     return y, s
 
 
+def _ssd(xh, dt, A, B, C, chunk: int, init_state=None):
+    """`ssd_chunked`. On DTensors each rank scans its own slab: the scan is
+    independent across batch rows and heads, so xs, dt, A and the state
+    are split on the batch and the heads as `shard`'s "heads" kind splits
+    xs, and B, C (shared by the heads) on the batch alone. DTensor's own
+    rules would fold a head split into a batched product's batch dim,
+    which some torch releases refuse to view."""
+    if not isinstance(xh, DTensor):
+        return ssd_chunked(xh, dt, A, B, C, chunk, init_state)
+    b, _, h, _ = spec_here(xh.shape, "heads")
+    state = (b, h, None, None)
+    return on_local_slabs(
+        lambda *a: ssd_chunked(*a[:5], chunk, a[5]), (xh, dt, A, B, C, init_state),
+        [(b, None, h, None), (b, None, h), (h,), (b, None, None), (b, None, None),
+         None if init_state is None else state],
+        [(b, None, h, None), state])
+
+
 def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig, init_state=None):
     """Full-sequence SSD mixer. x: [B, L, d] -> ([B, L, d] output, final
     state, conv input [B, L, conv_dim]); JAX's returns the first two and
@@ -163,7 +184,7 @@ def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig, init_state=None):
     b, l, _ = x.shape
     din, n, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = _matmul(x, p.in_proj, cd)
+    zxbcdt = shard(_matmul(x, p.in_proj, cd), "ssm_inner")
     z, xs, b_in, c_in, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xs, b_in, c_in], dim=-1)
     conv_out, _ = _causal_conv(conv_in, p.conv_w.to(cd), p.conv_b.to(cd))
@@ -176,11 +197,11 @@ def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig, init_state=None):
     # 1e-10), far inside every tolerance the port is held to.
     dt = F.softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
-    xh = xs.reshape(b, l, nh, hp)
+    xh = unflatten(xs, -1, (nh, hp))
     with span("ssm.ssd"):
-        y, final_state = ssd_chunked(xh, dt, A, b_in, c_in, cfg.ssm_chunk, init_state)
-    y = _gated_norm(p, (y + p.D[:, None] * xh).reshape(b, l, din), z, cfg)
-    return _matmul(y, p.out_proj, cd), final_state, conv_in
+        y, final_state = _ssd(xh, dt, A, b_in, c_in, cfg.ssm_chunk, init_state)
+    y = _gated_norm(p, flatten(y + p.D[:, None] * xh, -2, -1), z, cfg)
+    return shard(_matmul(y, p.out_proj, cd), "residual"), final_state, conv_in
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, device) -> dict:
@@ -199,7 +220,7 @@ def ssm_decode(p, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     b = x.shape[0]
     din, n, nh, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = _matmul(x, p.in_proj, cd)
+    zxbcdt = shard(_matmul(x, p.in_proj, cd), "ssm_inner")
     z, xs, b_in, c_in, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xs, b_in, c_in], dim=-1)  # [B, 1, conv_dim]
     conv_out, new_conv = _causal_conv(conv_in, p.conv_w.to(cd), p.conv_b.to(cd), conv_state=cache["conv"])

@@ -27,17 +27,20 @@ def _leaves(params) -> dict[str, torch.Tensor]:
 
 def adamw_init(params) -> dict:
     """{"mu", "nu": fp32 zeros keyed like `params`, "step": int32 0}, on the
-    parameters' device. `params`: {name: tensor} or a module."""
+    parameters' device; a DTensor parameter's moments take its layout.
+    `params`: {name: tensor} or a module."""
     leaves = _leaves(params)
     dev = next(iter(leaves.values())).device
-    mu = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev) for n, p in leaves.items()}
-    nu = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev) for n, p in leaves.items()}
+    mu = {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False) for n, p in leaves.items()}
+    nu = {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False) for n, p in leaves.items()}
     return {"mu": mu, "nu": nu, "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
     """(grads scaled by min(1, max_norm / (gn + 1e-9)), gn): gn is the fp32
-    L2 norm over every leaf, summed leaf by leaf."""
+    L2 norm over every leaf, summed leaf by leaf. DTensor gradients sum
+    over the whole mesh: a leaf's sum over its shards is reduced across
+    them before it joins the total."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, gn

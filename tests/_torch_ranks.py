@@ -1,16 +1,20 @@
 """Multi-rank checks of the PyTorch port on the CPU: the fleet mesh
-(`solve_fleet(shard=True)`, `run_control(shard=True)`) and the GPipe
-schedule (`pipeline_apply`), each over 4 gloo ranks, one process a rank.
+(`solve_fleet(shard=True)`, `run_control(shard=True)`), the GPipe
+schedule (`pipeline_apply`) and model parallelism (the train step and
+the train CLI over a (data=2, model=2) `build_mesh`), each over 4 gloo
+ranks, one process a rank.
 
     PYTHONPATH=src OMP_NUM_THREADS=1 python -m torch.distributed.run --standalone \\
         --nproc-per-node 4 tests/_torch_ranks.py fleet OUT_DIR
     ... tests/_torch_ranks.py pipeline OUT_DIR
+    ... tests/_torch_ranks.py model_parallel OUT_DIR
 
 Every rank runs the same calls; rank 0 writes OUT_DIR/<what>.npz: the
-results, the unsharded (or sequential) references it computed alone, and
-`check.<name>` flags with their details, which `tests/test_torch_mesh.py`
-and `tests/test_torch_pipeline.py` assert one by one and `chip_smoke.py`
-asserts together on the GPU machine's host. `python tests/_torch_ranks.py
+results, the unsharded (or sequential, or one-process) references it
+computed alone, and `check.<name>` flags with their details, which
+`tests/test_torch_mesh.py`, `tests/test_torch_pipeline.py` and
+`tests/test_torch_model_parallel.py` assert one by one; `chip_smoke.py`
+asserts the first two together on the GPU machine's host. `python tests/_torch_ranks.py
 reference OUT_DIR` writes the numbers that a run on another host is held
 to (`tests/torch_ranks_reference.json`).
 
@@ -19,6 +23,7 @@ load JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -38,6 +43,14 @@ SOLVE_KW = dict(m_max=3, t_phi=3, alpha=0.5, tol=1e-3, patience=4, device="cpu")
 CONTROL_KW = dict(epochs=3, seed=1, m_max=2, t_phi=2, device="cpu",
                   trace_kwargs=dict(node_failures=2, link_degradations=1, flash_crowds=1,
                                     min_duration=1, max_duration=2))
+# Model parallelism: the reduced qwen1.5-0.5b in fp32, global batch MP_B x MP_S,
+# MP_STEPS steps at MP_LR; the CLI at its reduced config.
+MP_B, MP_S, MP_STEPS, MP_LR = 4, 32, 3, 3e-4
+# Serving over the mesh: a prefill of MP_PREFILL tokens, MP_DECODE greedy
+# decode steps; logits within MP_DECODE_TOL of the largest one.
+MP_PREFILL, MP_DECODE, MP_DECODE_TOL = 16, 3, 1e-5
+MP_CLI = ["--arch", "qwen1.5-0.5b", "--reduced", "--global-batch", str(MP_B), "--seq-len", str(MP_S),
+          "--ckpt-every", "4", "--log-every", "1", "--device", "cpu"]
 # The pipeline cases: (stages, microbatches); MB x D microbatches of tanh(x @ w[s]).
 PIPE_CASES = ((4, 6), (4, 2), (1, 6))
 PIPE_MB, PIPE_D = 8, 16
@@ -353,6 +366,232 @@ def _pipeline(out: dict, checks: _Checks) -> None:
     del mesh
 
 
+def mp_config():
+    from repro_torch.configs import reduced_config
+
+    return dataclasses.replace(reduced_config("qwen1.5-0.5b"), compute_dtype="float32")
+
+
+def mp_batches(vocab: int) -> list:
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, vocab, (MP_B, MP_S), dtype=np.int32) for _ in range(MP_STEPS)]
+
+
+def _full_params(params) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    return {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach().numpy().copy()
+            for n, p in params.named_parameters()}
+
+
+def _laid_out(cfg, mesh):
+    """init_params(cfg, 0) and its AdamW state, laid out over `mesh` by
+    the sharding rules (one process: as they are)."""
+    from repro_torch.distributed.sharding import ShardingRules, distribute_params, param_pspecs
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import init_params, trainable
+    from repro_torch.optim import adamw_init
+
+    params = init_params(cfg, 0, device="cpu")
+    if mesh is not None:
+        distribute_params(params, mesh, param_pspecs(cfg, params, MeshShape.of(mesh), ShardingRules()))
+    return params, adamw_init(trainable(params))
+
+
+def _batch(tokens, mesh) -> dict:
+    import torch
+
+    from repro_torch.distributed.sharding import ShardingRules, distribute_batch
+
+    batch = {"tokens": torch.from_numpy(tokens)}
+    return batch if mesh is None else distribute_batch(batch, mesh, ShardingRules())
+
+
+def _mp_train(cfg, mesh, microbatches: int = 1):
+    """MP_STEPS steps from `_laid_out(cfg, mesh)`: (losses, grad norms,
+    final params as numpy, params, optimizer state)."""
+    from repro_torch.launch.steps import make_train_step
+
+    params, opt = _laid_out(cfg, mesh)
+    step = make_train_step(cfg, lr=MP_LR, microbatches=microbatches, mesh=mesh)
+    losses, norms = [], []
+    for b in mp_batches(cfg.vocab):
+        params, opt, m = step(params, opt, _batch(b, mesh))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return np.array(losses), np.array(norms), _full_params(params), params, opt
+
+
+def _first_grads(cfg, mesh) -> dict:
+    """{name: numpy gradient} of the first batch's loss at init."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.act import activation_sharding
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.steps import value_and_grad
+
+    params, _ = _laid_out(cfg, mesh)
+    ctx = contextlib.nullcontext() if mesh is None else activation_sharding(mesh, ShardingRules())
+    with ctx:
+        _, grads = value_and_grad(cfg, params, _batch(mp_batches(cfg.vocab)[0], mesh))
+    return {n: (g.full_tensor() if isinstance(g, DTensor) else g).numpy() for n, g in grads.items()}
+
+
+def _mp_decode(cfg, mesh) -> np.ndarray:
+    """The last-position logits of a prefill of MP_PREFILL tokens and of
+    MP_DECODE decode steps after it (greedy), [1 + MP_DECODE, B, vocab]."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import ShardingRules, distribute_caches, distribute_params, param_pspecs
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, serve_config
+    from repro_torch.models import init_params
+
+    scfg = dataclasses.replace(serve_config(cfg), param_dtype="float32")
+    total = MP_PREFILL + MP_DECODE
+    params = init_params(scfg, 0, device="cpu")
+    tokens = np.ascontiguousarray(mp_batches(scfg.vocab)[0][:, :MP_PREFILL])
+    if mesh is not None:
+        distribute_params(params, mesh, param_pspecs(scfg, params, MeshShape.of(mesh), ShardingRules()))
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    caches, logits = make_prefill_step(scfg, total, mesh=mesh)(params, _batch(tokens, mesh))
+    if mesh is not None:
+        plain = [{k: ({kk: full(vv) for kk, vv in v.items()} if isinstance(v, dict) else full(v))
+                  for k, v in layer.items()} for layer in caches]
+        caches = distribute_caches(scfg, plain, mesh, ShardingRules())
+    out = [full(logits)[:, -1].numpy().copy()]
+    step = make_serve_step(scfg, mesh=mesh)
+    for i in range(MP_DECODE):
+        token = out[-1].argmax(-1).astype(np.int32)[:, None]
+        logits, caches = step(params, caches, _batch(token, mesh)["tokens"], MP_PREFILL + i)
+        out.append(full(logits)[:, -1].numpy().copy())
+    return np.stack(out)
+
+
+def _cli(args) -> tuple[int | str, str]:
+    """The train CLI in this rank: (exit code or the error raised, stdout)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = train.main(args)
+        except ValueError as e:
+            rc = f"ValueError: {e}"
+    return rc, buf.getvalue()
+
+
+def _leaf_files(step_dir: Path) -> dict:
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    return {e["name"]: np.load(step_dir / e["file"]) for e in manifest["leaves"]}
+
+
+def _model_parallel(out: dict, checks: _Checks, out_dir: Path) -> None:
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import build_mesh
+
+    rank = dist.get_rank()
+    cfg = mp_config()
+    mesh = build_mesh(2, "cpu")
+    checks.add("mesh_is_data2_model2", mesh.mesh_dim_names == ("data", "model") and tuple(mesh.shape) == (2, 2),
+               mesh)
+    t0 = time.perf_counter()
+    losses, norms, params, live, opt = _mp_train(cfg, mesh)
+    out["mp_step_s"] = np.array((time.perf_counter() - t0) / MP_STEPS)
+    out["mp.losses"], out["mp.grad_norms"] = losses, norms
+    wq = live.get_submodule("blocks.0.attn").wq
+    checks.add("params_and_moments_are_dtensors",
+               isinstance(wq, DTensor) and isinstance(opt["mu"]["blocks.0.attn.wq"], DTensor)
+               and opt["mu"]["blocks.0.attn.wq"].placements == wq.placements, wq.placements)
+    mb_losses = _mp_train(cfg, mesh, microbatches=2)[0]
+    out["mp_mb2.losses"] = mb_losses
+    checks.close("microbatches_2_vs_1_loss", mb_losses, losses, rtol=1e-4)
+
+    # The CLI: 4 steps then a resume to 8, against 8 uninterrupted steps.
+    a, b = out_dir / "cli_uninterrupted", out_dir / "cli_resumed"
+    mp2 = MP_CLI + ["--model-parallel", "2"]
+    rc_a, _ = _cli(mp2 + ["--steps", "8", "--ckpt-dir", str(a)])
+    rc_b1, _ = _cli(mp2 + ["--steps", "4", "--ckpt-dir", str(b)])
+    rc_b2, said = _cli(mp2 + ["--steps", "8", "--resume", "--ckpt-dir", str(b)])
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, said)
+    checks.add("cli_runs_exit_0", (rc_a, rc_b1, rc_b2) == (0, 0, 0), (rc_a, rc_b1, rc_b2))
+    checks.add("cli_resumed_from_step_4_on_rank_0_only",
+               "resumed from step 4" in every[0] and '"step": 4,' in every[0]
+               and '"step": 3,' not in every[0] and not any(every[1:]), [e[:200] for e in every])
+    rc3, said3 = _cli(MP_CLI + ["--model-parallel", "3", "--steps", "1"])
+    checks.add("cli_model_parallel_3_on_4_ranks_raises_before_a_step",
+               isinstance(rc3, str) and "does not divide" in rc3 and '"step"' not in said3, (rc3, said3[:200]))
+
+    # Serving over the mesh: a prefill, its caches laid out by
+    # `cache_pspecs` (the sequence split over "model"), then decode steps.
+    decode_logits = _mp_decode(cfg, mesh)
+
+    # A checkpoint moves between mesh shapes: written at (2, 2), restored at
+    # (4, 1) and written there, restored at (2, 2).
+    grads = _first_grads(cfg, mesh)
+    one = build_mesh(1, "cpu")
+    c2, c1 = CheckpointManager(out_dir / "ckpt_mp2"), CheckpointManager(out_dir / "ckpt_mp1")
+    c2.save(MP_STEPS, {"params": live, "opt": opt})
+    live1, opt1 = _laid_out(cfg, one)
+    tree1 = c2.restore(None, {"params": live1, "opt": opt1}, device="cpu")[0]
+    live1.load_state_dict(tree1["params"])
+    restored_1 = {**{"params." + n: a for n, a in _full_params(live1).items()},
+                  **{"opt.mu." + n: t.full_tensor().numpy() for n, t in tree1["opt"]["mu"].items()}}
+    layouts = [t.placements == live1.get_parameter(n).placements for n, t in tree1["params"].items()]
+    c1.save(MP_STEPS, {"params": live1, "opt": tree1["opt"]})
+    live2, opt2 = _laid_out(cfg, mesh)
+    tree2 = c1.restore(None, {"params": live2, "opt": opt2}, device="cpu")[0]
+    live2.load_state_dict(tree2["params"])
+    restored_2 = {**{"params." + n: a for n, a in _full_params(live2).items()},
+                  **{"opt.mu." + n: t.full_tensor().numpy() for n, t in tree2["opt"]["mu"].items()}}
+    layouts += [t.placements == live2.get_parameter(n).placements for n, t in tree2["params"].items()]
+    checks.add("restored_leaves_take_the_running_layout", all(layouts))
+    if rank != 0:
+        return
+
+    # The one-process references, on rank 0 alone (no collective).
+    ref_losses, ref_norms, ref_params, _, _ = _mp_train(cfg, None)
+    out["one.losses"], out["one.grad_norms"] = ref_losses, ref_norms
+    checks.close("loss_vs_one_process", losses, ref_losses)
+    checks.close("grad_norm_vs_one_process", norms, ref_norms)
+    ref_decode = _mp_decode(cfg, None)
+    err = float(np.abs(decode_logits - ref_decode).max() / np.abs(ref_decode).max())
+    checks.add("prefill_and_decode_vs_one_process", err <= MP_DECODE_TOL
+               and np.array_equal(decode_logits.argmax(-1), ref_decode.argmax(-1)),
+               f"max abs error / max |logit|: {err}")
+    ref_grads = _first_grads(cfg, None)
+    rel = {n: float(np.linalg.norm(grads[n] - g) / np.linalg.norm(g)) for n, g in ref_grads.items()}
+    checks.add("first_gradients_vs_one_process", max(rel.values()) <= 1e-5, max(rel.items(), key=lambda kv: kv[1]))
+    # 0.1 lr: a step-1 gradient within its reorder error of AdamW's eps
+    # (blocks.0.mlp.wo[195, 92]: 2.8e-9 against 4.6e-9) moves by a
+    # fraction of lr, ROADMAP section 3's AdamW-near-eps rule.
+    worst = max(float(np.max(np.abs(params[n] - ref_params[n]) - (1e-5 * np.abs(ref_params[n]) + 0.1 * MP_LR)))
+                for n in ref_params)
+    checks.add("params_vs_one_process", worst <= 0, f"worst excess over rtol 1e-5 + 0.1 lr: {worst}")
+    fa, fb = _leaf_files(a / "step_00000008"), _leaf_files(b / "step_00000008")
+    checks.add("cli_resume_bitwise_uninterrupted",
+               fa.keys() == fb.keys() and all(np.array_equal(fa[k], fb[k]) for k in fa),
+               [k for k in fa if not np.array_equal(fa[k], fb.get(k))][:5])
+    saved2 = _leaf_files(out_dir / "ckpt_mp2" / f"step_{MP_STEPS:08d}")
+    saved1 = _leaf_files(out_dir / "ckpt_mp1" / f"step_{MP_STEPS:08d}")
+    checks.add("ckpt_mp2_restores_under_mp1_bitwise", all(np.array_equal(v, saved2[k]) for k, v in restored_1.items()))
+    checks.add("ckpt_mp1_restores_under_mp2_bitwise", all(np.array_equal(v, saved1[k]) for k, v in restored_2.items())
+               and saved1.keys() == saved2.keys()
+               and all(np.array_equal(saved1[k], saved2[k]) for k in saved1))
+
+
 def rank_main(what: str, out_dir: str) -> int:
     import torch
     import torch.distributed as dist
@@ -365,7 +604,10 @@ def rank_main(what: str, out_dir: str) -> int:
     if dist.get_world_size() != N_RANKS:
         raise SystemExit(f"{what}: needs {N_RANKS} ranks, got {dist.get_world_size()}")
     out, checks = {}, _Checks()
-    {"fleet": _fleet, "pipeline": _pipeline}[what](out, checks)
+    if what == "model_parallel":
+        _model_parallel(out, checks, Path(out_dir))
+    else:
+        {"fleet": _fleet, "pipeline": _pipeline}[what](out, checks)
     checks.add("ranks_import_neither_jax_nor_repro",
                not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro" for m in sys.modules))
     out["wall_s"] = np.array(time.perf_counter() - t0)

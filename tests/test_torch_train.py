@@ -320,12 +320,12 @@ def test_flash_backward_matches_jax_vjp(case, monkeypatch):
 
 
 def test_flash_autograd_function_is_kernel_forward_plain_backward(monkeypatch):
-    """The CUDA route's dispatcher op (`torch.ops.repro_torch.flash_attention`)
-    on CPU tensors, with the kernel launch stood in by the streaming
-    recurrence (the kernel's plain version): its forward is the launch,
-    unchanged, and the gradients of its registered autograd are
-    `flash_attention_backward`'s, which equal autograd through the
-    recurrence."""
+    """The dispatcher op (`torch.ops.repro_torch.flash_attention`) on CPU
+    tensors, with its implementation there (the plain route, `_plain`)
+    stood in by the streaming recurrence (the kernel's plain version): its
+    forward is the implementation, unchanged, and the gradients of its
+    registered autograd are `flash_attention_backward`'s, which equal
+    autograd through the recurrence."""
     case = BWD_CASES[1]
     causal, window, q_offset = case[6:]
     calls = []
@@ -334,7 +334,7 @@ def test_flash_autograd_function_is_kernel_forward_plain_backward(monkeypatch):
         calls.append((c, w, off))
         return attention_chunked(q, k, v, causal=c, window=w, q_offset=off, q_chunk=8, kv_chunk=16)
 
-    monkeypatch.setattr(fa_ops, "_launch", fake_launch)
+    monkeypatch.setattr(fa_ops, "_plain", fake_launch)
     arrs = [torch.from_numpy(a) for a in _bwd_inputs(case, seed=3)]
     q, k, v = (t.clone().requires_grad_() for t in arrs[:3])
     out = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, q_offset)

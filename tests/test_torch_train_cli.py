@@ -4,7 +4,9 @@ JAX CLI cannot take a step under its own mesh on this machine: ROADMAP.md
 section 3): 8 steps checkpointed every 4, then `--steps 12 --resume`
 prints "resumed from step 8" and ends on params bitwise those of an
 uninterrupted 12-step run; SIGTERM checkpoints at step + 1 and exits 0;
-an encoder-decoder and a mesh are refused before any step. Every entry
+an encoder-decoder, and a --model-parallel that does not divide the
+world, are refused before any step (tests/test_torch_model_parallel.py
+runs the CLI over a mesh). Every entry
 point of the training path defaults to the GPU and raises without one.
 """
 import os
@@ -103,8 +105,37 @@ def test_train_cli_sigterm_checkpoints_step_plus_one(tmp_path):
 def test_train_cli_refuses_encdec_and_mesh(tmp_path):
     with pytest.raises(ValueError, match="dec_tokens"):
         train.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # One process is a world of one rank, which --model-parallel 2 does not divide.
+    with pytest.raises(ValueError, match="does not divide"):
         train.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu", "--model-parallel", "2"])
+
+
+_NO_MESH = r"""
+import sys
+from repro_torch.launch import train
+
+def refuse(*args, **kwargs):
+    raise AssertionError("build_mesh called")
+
+train.build_mesh = refuse
+sys.exit(train.main(sys.argv[1:]))
+"""
+
+
+def test_train_cli_world_of_one_runs_the_plain_step(tmp_path):
+    """Under a launcher of one process (`torchrun --nproc-per-node 1`, the
+    one-GPU launch) with --model-parallel 1 the CLI joins the group but
+    builds no mesh: it runs the plain step."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(ENV, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    r = subprocess.run([sys.executable, "-c", _NO_MESH, *BASE, "--steps", "2", "--ckpt-dir", str(tmp_path)],
+                       env=env, capture_output=True, text=True, timeout=120, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert sum(ln.startswith('{"step"') for ln in r.stdout.splitlines()) == 1
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
