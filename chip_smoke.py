@@ -2704,24 +2704,21 @@ class DryrunMatrix:
 
 def phase12_matrix(matrix) -> float:
     """Every cell of the dry run's matrix ok where `shape_applicable` says
-    and skipped elsewhere. An ok cell has per-device FLOPs, temporaries
-    and nonzero collectives, unless it is one of `KNOWN_MESH_ERRORS`:
-    then its DTensor trace must fail on exactly the op listed there
-    (DTensor has no sharding rule for it), and any other mesh error fails.
-    Returns the matrix's wall s."""
+    and skipped elsewhere. Every ok cell, the MoE archs' included, ran its
+    DTensor trace: no mesh error, and per-device FLOPs, temporaries and
+    nonzero collectives, none of them null. Every unit exits 0. Returns the
+    matrix's wall s."""
     from repro_torch.configs import ARCHS, get_config
-    from repro_torch.launch.dryrun import KNOWN_MESH_ERRORS, missing_rule
     from repro_torch.models.config import SHAPES, shape_applicable
 
     wall_s = matrix.join()
     recs = {(r["arch"], r["shape"], r["mesh"]): r
             for r in (json.loads(f.read_text()) for f in DRYRUN_DIR.glob("*.json"))}
-    cells, flops, coll, wrong, mesh_errors = {}, {}, {}, [], {}
+    cells, flops, coll, wrong = {}, {}, {}, []
     n_applicable = 0
     for arch in ARCHS:
         for shape in SHAPES:
             applicable = shape_applicable(get_config(arch), SHAPES[shape])[0]
-            known = KNOWN_MESH_ERRORS.get((arch, shape))
             for mesh in ("16x16", "2x16x16"):
                 n_applicable += applicable
                 r = recs.get((arch, shape, mesh), {"status": "missing"})
@@ -2733,28 +2730,23 @@ def phase12_matrix(matrix) -> float:
                 cells[key] = [r["flops_per_device"], r["per_device_argument_gib"]]
                 flops[key] = r["flops"]
                 coll[key] = r["collective_bytes"]
-                if known is not None:
-                    mesh_errors[key] = missing_rule(r.get("mesh_error"))
-                    if mesh_errors[key] != known:
-                        wrong.append((arch, shape, mesh, f"want a mesh error on {known}",
-                                      (r.get("mesh_error") or "none")[:200]))
-                elif "mesh_error" in r:
+                if "mesh_error" in r:
                     wrong.append((arch, shape, mesh, "mesh error", r["mesh_error"][:200]))
-                elif not (r["flops_per_device"] > 0 and r["memory"]["temp_bytes"] is not None
+                elif not (r["flops_per_device"] is not None and r["flops_per_device"] > 0
+                          and r["memory"]["temp_bytes"] is not None and r["collective_bytes"] is not None
                           and sum(r["collective_bytes"].values()) > 0):
-                    wrong.append((arch, shape, mesh, "no per-device numbers or zero collectives"))
+                    wrong.append((arch, shape, mesh, "a null per-device number or zero collectives"))
     counts = {k: sum(r["status"] == k for r in recs.values()) for k in ("ok", "skipped", "error")}
-    # A unit exits 1 when one of its cells records a mesh error (each held above).
-    known_archs = {a for a, _ in KNOWN_MESH_ERRORS}
-    bad_rc = {f"{a}{' --multi-pod' if mp else ''}": rc for (a, mp), rc in matrix.rcs.items()
-              if rc != 0 and not (rc == 1 and a in known_archs)}
+    n_mesh_errors = sum("mesh_error" in r for r in recs.values())
+    bad_rc = {f"{a}{' --multi-pod' if mp else ''}": rc for (a, mp), rc in matrix.rcs.items() if rc != 0}
     emit({"phase": 12, "name": "dryrun_matrix", "wall_s": wall_s, "processes": DRYRUN_WORKERS, **counts,
+          "mesh_errors": n_mesh_errors,
           "trace_s_total": sum(r.get("trace_s", 0.0) + r.get("mesh_trace_s", 0.0) for r in recs.values()),
-          "cells_flops_gib_per_device": cells, "cells_flops_global": flops, "cells_collective_bytes": coll,
-          "mesh_errors_op": mesh_errors})
-    if bad_rc or wrong or counts != {"ok": n_applicable, "skipped": 2 * len(ARCHS) * len(SHAPES) - n_applicable,
-                                     "error": 0}:
-        raise AssertionError(f"phase 12: dry-run matrix {counts}, exit codes {bad_rc}, cells {wrong[:5]}")
+          "cells_flops_gib_per_device": cells, "cells_flops_global": flops, "cells_collective_bytes": coll})
+    if bad_rc or wrong or n_mesh_errors or counts != {
+            "ok": n_applicable, "skipped": 2 * len(ARCHS) * len(SHAPES) - n_applicable, "error": 0}:
+        raise AssertionError(f"phase 12: dry-run matrix {counts}, {n_mesh_errors} mesh errors, "
+                             f"exit codes {bad_rc}, cells {wrong[:5]}")
     return wall_s
 
 
@@ -3104,34 +3096,32 @@ def phase13(counter, problems, phase7_J) -> None:
 
 
 # Phase 14: model parallelism. (a) phase 11's model and batches through the
-# model-parallel step on a (data=1, model=1) mesh over a one-rank NCCL group;
-# (b) the dry run's per-device records of qwen1.5-0.5b on both production
-# meshes, from phase 12's matrix.
+# model-parallel step on a (data=1, model=1) mesh over a one-rank NCCL group,
+# then an MoE model the same way, with a prefill and decode steps; (b) the dry
+# run's per-device records of qwen1.5-0.5b and of the MoE archs on both
+# production meshes, from phase 12's matrix; (c) the CPU tests' gloo ranks.
 MP_STEPS = 3
 MP_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# The MoE model of (a): its published widths, cut to this many layers.
+MP_MOE_ARCH, MP_MOE_LAYERS = "qwen2-moe-a2.7b", 2
+# The MoE cells of (b), beside DRYRUN_ARCH's.
+MP_MOE_CELLS = (("qwen2-moe-a2.7b", ("train_4k", "prefill_32k", "decode_32k")),
+                ("mixtral-8x22b", ("train_4k", "prefill_32k", "decode_32k", "long_500k")))
 
 
-def phase14_train(counter, plain_p50_ms: float) -> dict:
-    """(a) MP_STEPS train steps of phase 11's config and batches, plain and
-    over the one-rank mesh as DTensors under activation_sharding, from the
-    same weights: losses, grad norms and parameters bitwise; the flash op
-    launched through its sharding rule twice a layer a step (remat), all
-    wgmma; then the wrapper on CUDA DTensors, which launches or raises."""
+def mp_train_pair(counter, cfg, batches, mesh, rules) -> dict:
+    """MP_STEPS train steps of `cfg` on `batches` from init_params(cfg, 0),
+    plain, then over the one-rank `mesh` as DTensors under
+    activation_sharding, each run's state freed before the next: losses,
+    grad norms and step ms of each, whether the final parameters are
+    bitwise equal, and the flash launches of each run."""
     import torch
-    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, make_pipeline
-    from repro_torch.distributed.sharding import ShardingRules, distribute_batch, distribute_params, param_pspecs
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.mesh import MeshShape, build_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import distribute_batch, distribute_params, param_pspecs
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params, trainable
     from repro_torch.optim import adamw_init
-
-    cfg = get_config(TRAIN_ARCH)
-    stream = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=1234))
-    batches = [torch.from_numpy(stream.next_batch()).cuda() for _ in range(MP_STEPS)]
-    mesh, rules = build_mesh(1, "cuda"), ShardingRules()
 
     def train(on_mesh: bool):
         params = init_params(cfg, 0, device="cuda")
@@ -3164,11 +3154,43 @@ def phase14_train(counter, plain_p50_ms: float) -> dict:
     plain = train(False)
     plain_launches = counter.last["flash_attention"]
     mp = train(True)
-    launches, variants = counter.last["flash_attention"], counter.last_variants["flash_attention"]
-    params_bitwise = all(torch.equal(mp[3][n], w) for n, w in plain[3].items())
-    differ = [n for n, w in plain[3].items() if not torch.equal(mp[3][n], w)][:5]
-    plain, mp = plain[:3] + plain[4:], mp[:3] + mp[4:]  # the final parameters go
+    out = {"plain": plain[:3], "mesh": mp[:3], "dtensors": mp[4], "flash_launches_plain": plain_launches,
+           "flash_launches": counter.last["flash_attention"],
+           "flash_variants": counter.last_variants["flash_attention"],
+           "params_bitwise": all(torch.equal(mp[3][n], w) for n, w in plain[3].items()),
+           "params_differ": [n for n, w in plain[3].items() if not torch.equal(mp[3][n], w)][:5]}
+    del plain, mp
     free_device()
+    return out
+
+
+def p50(ms: list) -> float:
+    """The median of the steps after the first."""
+    return sorted(ms[1:])[len(ms[1:]) // 2]
+
+
+def phase14_train(counter, plain_p50_ms: float) -> dict:
+    """(a) MP_STEPS train steps of phase 11's config and batches, plain and
+    over the one-rank mesh as DTensors under activation_sharding, from the
+    same weights: losses, grad norms and parameters bitwise; the flash op
+    launched through its sharding rule twice a layer a step (remat), all
+    wgmma; then the wrapper on CUDA DTensors, which launches or raises."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import build_mesh
+
+    cfg = get_config(TRAIN_ARCH)
+    stream = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=1234))
+    batches = [torch.from_numpy(stream.next_batch()).cuda() for _ in range(MP_STEPS)]
+    mesh, rules = build_mesh(1, "cuda"), ShardingRules()
+    pair = mp_train_pair(counter, cfg, batches, mesh, rules)
+    plain, mp = pair["plain"], pair["mesh"]
+    launches, variants = pair["flash_launches"], pair["flash_variants"]
+    params_bitwise = pair["params_bitwise"]
 
     # The wrapper on CUDA DTensors at the serve prefill's shape: the kernel's
     # output bitwise, one launch; a dtype the kernels refuse raises.
@@ -3188,23 +3210,22 @@ def phase14_train(counter, plain_p50_ms: float) -> dict:
     del q, k, v, qd, kd, vd, out, out_d
     free_device()
 
-    p50 = sorted(mp[2][1:])[len(mp[2][1:]) // 2]
-    p50_plain = sorted(plain[2][1:])[len(plain[2][1:]) // 2]
+    p50_mesh, p50_plain = p50(mp[2]), p50(plain[2])
     result = {
         "mesh": str(mesh), "steps": MP_STEPS, "losses": mp[0], "grad_norms": mp[1],
         "losses_plain": plain[0], "grad_norms_plain": plain[1],
         "losses_bitwise": mp[0] == plain[0], "grad_norms_bitwise": mp[1] == plain[1],
-        "params_bitwise": params_bitwise, "params_differ": differ, "dtensors": mp[3],
-        "flash_launches": launches, "flash_variants": variants, "flash_launches_plain": plain_launches,
-        "step_ms": mp[2], "step_ms_plain": plain[2], "step_ms_p50": p50, "step_ms_p50_plain": p50_plain,
-        "step_ms_p50_phase11": plain_p50_ms, "dtensor_host_overhead_ms": p50 - p50_plain,
+        "params_bitwise": params_bitwise, "params_differ": pair["params_differ"], "dtensors": pair["dtensors"],
+        "flash_launches": launches, "flash_variants": variants, "flash_launches_plain": pair["flash_launches_plain"],
+        "step_ms": mp[2], "step_ms_plain": plain[2], "step_ms_p50": p50_mesh, "step_ms_p50_plain": p50_plain,
+        "step_ms_p50_phase11": plain_p50_ms, "dtensor_host_overhead_ms": p50_mesh - p50_plain,
         "wrapper_dtensor_launches": wrapper_launches, "wrapper_dtensor_bitwise": wrapper_bitwise,
         "wrapper_dtensor_float16_refused": refused,
     }
     emit({"phase": 14, "part": "a", "name": "model_parallel_train_one_rank_nccl", **result})
     checks = {
         "losses bitwise": result["losses_bitwise"], "grad norms bitwise": result["grad_norms_bitwise"],
-        "params bitwise": params_bitwise, "params and moments are DTensors": mp[3],
+        "params bitwise": params_bitwise, "params and moments are DTensors": pair["dtensors"],
         "flash through its rule, twice a layer a step": launches == 2 * cfg.n_layers * MP_STEPS
         and set(variants) == {"wgmma"},
         "wrapper on DTensors launches the kernel": wrapper_launches == {"wgmma": 1} and wrapper_bitwise,
@@ -3216,25 +3237,145 @@ def phase14_train(counter, plain_p50_ms: float) -> dict:
     return result
 
 
+def mp_serve_pair(counter, cfg, tokens, mesh, rules) -> dict:
+    """A prefill of `tokens` and MP_STEPS greedy decode steps of the serving
+    config of `cfg` from init_params(., 0), plain, then over the one-rank
+    `mesh` (the prefill's caches laid out by `cache_pspecs`): each run's
+    last-position logits and tokens, and the flash launches of each."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (distribute_batch, distribute_caches, distribute_params,
+                                                  param_pspecs)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, serve_config
+    from repro_torch.models import init_params
+
+    scfg = serve_config(cfg)
+    total = tokens.shape[1] + MP_STEPS
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def serve(on_mesh: bool):
+        kw = {"mesh": mesh, "rules": rules} if on_mesh else {}
+        params = init_params(scfg, 0, device="cuda")
+        if on_mesh:
+            distribute_params(params, mesh, param_pspecs(scfg, params, MeshShape.of(mesh), rules))
+
+        def batch(t):
+            return distribute_batch({"tokens": t}, mesh, rules) if on_mesh else {"tokens": t}
+
+        def run():
+            caches, logits = make_prefill_step(scfg, total, **kw)(params, batch(tokens))
+            if on_mesh:
+                plain = [{k: ({kk: full(vv) for kk, vv in v.items()} if isinstance(v, dict) else full(v))
+                          for k, v in layer.items()} for layer in caches]
+                caches = distribute_caches(scfg, plain, mesh, rules)
+            out, toks = [full(logits)[:, -1].clone()], []
+            step = make_serve_step(scfg, **kw)
+            for i in range(MP_STEPS):
+                toks.append(out[-1].argmax(-1).to(torch.int32)[:, None])
+                logits, caches = step(params, caches, batch(toks[-1])["tokens"], tokens.shape[1] + i)
+                out.append(full(logits)[:, -1].clone())
+            return torch.stack(out), torch.cat(toks, dim=1)
+
+        logits, toks = counter.run(run)
+        del params
+        free_device()
+        return logits, toks
+
+    plain = serve(False)
+    plain_launches = counter.last["flash_attention"]
+    mp = serve(True)
+    out = {"logits_bitwise": torch.equal(plain[0], mp[0]), "tokens_equal": torch.equal(plain[1], mp[1]),
+           "max_abs_diff": [float((a.float() - b.float()).abs().max()) for a, b in zip(plain[0], mp[0])],
+           "flash_launches_plain": plain_launches, "flash_launches": counter.last["flash_attention"],
+           "flash_variants": counter.last_variants["flash_attention"]}
+    del plain, mp
+    free_device()
+    return out
+
+
+def phase14_moe(counter, card: str) -> dict:
+    """(a, MoE) MP_MOE_ARCH at its published widths cut to MP_MOE_LAYERS
+    layers (fp32 params, bf16 compute, remat), phase 11's batches: MP_STEPS
+    train steps plain and over the one-rank mesh, where each rank
+    dispatches its own token groups on local tensors and the expert
+    products run in the parameter rules' layouts (`layers._moe_on_mesh`):
+    losses, grad norms and all parameters bitwise; then a prefill of the
+    first batch and MP_STEPS decode steps, plain and over the mesh,
+    bitwise. Every flash launch through its sharding rule, wgmma (D=128).
+    The steps' p50 plain and over the mesh, beside the card's name and
+    power limit."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import build_mesh
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MP_MOE_ARCH), n_layers=MP_MOE_LAYERS)
+    stream = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=1234))
+    batches = [torch.from_numpy(stream.next_batch()).cuda() for _ in range(MP_STEPS)]
+    mesh, rules = build_mesh(1, "cuda"), ShardingRules()
+    pair = mp_train_pair(counter, cfg, batches, mesh, rules)
+    t1 = time.perf_counter()
+    served = mp_serve_pair(counter, cfg, batches[0], mesh, rules)
+    plain, mp = pair["plain"], pair["mesh"]
+    per_step = (2 if cfg.remat else 1) * cfg.n_layers
+    result = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": cfg.n_params(),
+        "experts": cfg.n_experts, "top_k": cfg.top_k, "moe_groups": cfg.moe_groups, "batch": [TRAIN_B, TRAIN_S],
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+        "losses": mp[0], "losses_plain": plain[0], "grad_norms": mp[1], "grad_norms_plain": plain[1],
+        "losses_bitwise": mp[0] == plain[0], "grad_norms_bitwise": mp[1] == plain[1],
+        "params_bitwise": pair["params_bitwise"], "params_differ": pair["params_differ"],
+        "dtensors": pair["dtensors"], "flash_launches": pair["flash_launches"],
+        "flash_variants": pair["flash_variants"], "flash_launches_plain": pair["flash_launches_plain"],
+        "step_ms": mp[2], "step_ms_plain": plain[2], "step_ms_p50": p50(mp[2]), "step_ms_p50_plain": p50(plain[2]),
+        "serve": served, "card": card, "train_s": t1 - t0, "serve_s": time.perf_counter() - t1,
+        "wall_s": time.perf_counter() - t0,
+    }
+    emit({"phase": 14, "part": "a", "name": "model_parallel_moe_one_rank_nccl", **result})
+    checks = {
+        "losses bitwise": result["losses_bitwise"], "grad norms bitwise": result["grad_norms_bitwise"],
+        "params bitwise": pair["params_bitwise"], "params and moments are DTensors": pair["dtensors"],
+        "flash through its rule, all wgmma": pair["flash_launches"] == per_step * MP_STEPS
+        and set(pair["flash_variants"]) == {"wgmma"},
+        "prefill and decode bitwise": served["logits_bitwise"] and served["tokens_equal"],
+        "prefill flash through its rule, all wgmma": served["flash_launches"] == cfg.n_layers
+        and set(served["flash_variants"]) == {"wgmma"},
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14a MoE: {failed} {result}")
+    return result
+
+
 def phase14_dryrun() -> dict:
-    """(b) The matrix's qwen1.5-0.5b records on both production meshes:
-    collectives by kind, per-device temporaries, FLOPs and arguments; none
-    null, none an error."""
+    """(b) The matrix's qwen1.5-0.5b records and the MoE archs' records
+    (`MP_MOE_CELLS`) on both production meshes: collectives by kind,
+    per-device temporaries, FLOPs and arguments; none null, no mesh error,
+    nonzero collectives, none an error."""
     rows, bad = {}, []
-    for shape in MP_CELLS:
-        for mesh in ("16x16", "2x16x16"):
-            f = DRYRUN_DIR / f"{DRYRUN_ARCH}__{shape}__{mesh}.json"
-            r = json.loads(f.read_text()) if f.exists() else {"status": "missing"}
-            if r["status"] != "ok":
-                bad.append((shape, mesh, r["status"], r.get("error", "")[:200]))
-                continue
-            row = {"collective_bytes": r["collective_bytes"], "temp_bytes": r["memory"]["temp_bytes"],
-                   "flops_per_device": r["flops_per_device"], "flops": r["flops"],
-                   "per_device_argument_gib": r["per_device_argument_gib"], "mesh_trace_s": r["mesh_trace_s"]}
-            if any(v is None for v in row.values()) or not row["collective_bytes"]:
-                bad.append((shape, mesh, "null", r.get("mesh_error"), row))
-            rows[f"{shape}/{mesh}"] = row
-    emit({"phase": 14, "part": "b", "name": "dryrun_mesh_records", "arch": DRYRUN_ARCH, "cells": rows})
+    for arch, shapes in ((DRYRUN_ARCH, MP_CELLS), *MP_MOE_CELLS):
+        for shape in shapes:
+            for mesh in ("16x16", "2x16x16"):
+                f = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
+                r = json.loads(f.read_text()) if f.exists() else {"status": "missing"}
+                if r["status"] != "ok":
+                    bad.append((arch, shape, mesh, r["status"], r.get("error", "")[:200]))
+                    continue
+                row = {"collective_bytes": r["collective_bytes"], "temp_bytes": r["memory"]["temp_bytes"],
+                       "flops_per_device": r["flops_per_device"], "flops": r["flops"],
+                       "per_device_argument_gib": r["per_device_argument_gib"], "mesh_trace_s": r["mesh_trace_s"]}
+                if ("mesh_error" in r or any(v is None for v in row.values())
+                        or not sum(row["collective_bytes"].values())):
+                    bad.append((arch, shape, mesh, "null", r.get("mesh_error"), row))
+                rows[f"{arch}/{shape}/{mesh}"] = row
+    emit({"phase": 14, "part": "b", "name": "dryrun_mesh_records", "cells": rows})
     if bad:
         raise AssertionError(f"phase 14b: {bad}")
     return rows
@@ -3243,7 +3384,8 @@ def phase14_dryrun() -> dict:
 def phase14_ranks() -> dict:
     """(c) The CPU tests' model-parallel run on this host's torch: 4 gloo
     ranks, a (data=2, model=2) mesh (`tests/_torch_ranks.py
-    model_parallel`), every check held."""
+    model_parallel`: the dense model and the two MoE configs, the train
+    CLI on both), every check held."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("_torch_ranks", ROOT / "tests" / "_torch_ranks.py")
@@ -3261,20 +3403,27 @@ def phase14_ranks() -> dict:
     row = {"device": "cpu", "ranks": ranks.N_RANKS, "backend": "gloo", "torch": str(r["torch"]),
            "wall_s": time.perf_counter() - t0, "ranks_wall_s": float(r["wall_s"]),
            "checks": sum(1 for k in r if k.startswith("check.")), "step_s": float(r["mp_step_s"]),
-           "losses": r["mp.losses"].tolist(), "losses_one_process": r["one.losses"].tolist()}
+           "losses": r["mp.losses"].tolist(), "losses_one_process": r["one.losses"].tolist(),
+           "moe": {arch: {"losses": r[f"{arch}.losses"].tolist(),
+                          "losses_one_process": r[f"{arch}.one.losses"].tolist(),
+                          "dropped_entries": int(r[f"{arch}.dropped_entries"])} for arch in ranks.MOE_CONFIGS},
+           "moe_cli_losses": r["moe_cli.losses"].tolist(),
+           "moe_cli_losses_one_process": r["moe_cli.one.losses"].tolist()}
     emit({"phase": 14, "part": "c", "name": "model_parallel_gloo_ranks_on_host", **row})
     if failed:
         raise AssertionError(f"phase 14c: failed checks {failed}")
     return row
 
 
-def phase14(counter, plain_p50_ms: float) -> None:
+def phase14(counter, plain_p50_ms: float, card: str) -> None:
     import torch.distributed as dist
 
     t0 = time.perf_counter()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         phase14_train(counter, plain_p50_ms)
+        t_moe = time.perf_counter()
+        phase14_moe(counter, card)
     finally:
         dist.destroy_process_group()
     t1 = time.perf_counter()
@@ -3282,7 +3431,7 @@ def phase14(counter, plain_p50_ms: float) -> None:
     t2 = time.perf_counter()
     phase14_ranks()
     emit({"phase": 14, "name": "model_parallelism", "wall_s": time.perf_counter() - t0, "train_s": t1 - t0,
-          "ranks_s": time.perf_counter() - t2})
+          "moe_s": t1 - t_moe, "ranks_s": time.perf_counter() - t2})
 
 
 def main() -> int:
@@ -3365,7 +3514,7 @@ def run_phases(torch, matrix) -> int:
     trained = phase11(counter)
     phase12(counter, matrix)
     phase13(counter, fleet_problems, phase7_J)
-    phase14(counter, trained["train"]["step_ms_p50"])
+    phase14(counter, trained["train"]["step_ms_p50"], card)
     summary["flash_attention"]["backward"] = {
         "route": "plain (recompute under autograd, kernels/flash_attention/ops.py::flash_attention_backward)",
         "rows": trained["flash_grad_rows"],

@@ -56,6 +56,11 @@ def active() -> bool:
     return _ctx() is not None
 
 
+def context():
+    """(mesh, rules) of this thread's `activation_sharding`, or None."""
+    return _ctx()
+
+
 def enter_context():
     """A context manager that installs, wherever it is entered, the context
     active on the calling thread now (a no-op without one)."""
@@ -147,14 +152,20 @@ def on_local_slabs(fn, args, specs, out_specs):
     non-tensor argument, or None, passes as it is; its spec is None), the
     outputs taken as DTensors laid out by `out_specs`. For a computation
     independent across the split dims, whose ops DTensor would otherwise
-    re-lay one by one."""
+    re-lay one by one. An argument replicated over a mesh dim that splits
+    an output is used by ranks that compute different slices, so its
+    gradient is their partial sum there (the redistribute back to its own
+    layout reduces it)."""
     from .sharding import to_placements  # sharding imports the models, which import this module
 
     mesh, _ = _ctx()
+    splits = {i for spec in out_specs for i, p in enumerate(to_placements(mesh, spec)) if isinstance(p, Shard)}
     local = []
     for a, spec in zip(args, specs, strict=True):
         if isinstance(a, DTensor):
-            a = a.redistribute(mesh, to_placements(mesh, spec)).to_local()
+            pl = to_placements(mesh, spec)
+            grad = [Partial() if i in splits and not isinstance(p, Shard) else p for i, p in enumerate(pl)]
+            a = a.redistribute(mesh, pl).to_local(grad_placements=grad)
         elif isinstance(a, torch.Tensor):
             raise TypeError("on_local_slabs: a plain tensor under activation_sharding")
         local.append(a)
@@ -236,11 +247,14 @@ def match_layout(x, like, dims: int):
 
 
 def softmax_last(x):
-    """`torch.softmax(x, -1)`. For a DTensor split on its last dim (decode
-    scores over a sequence-split cache) the max and the sum are reduced
-    across the split, one number a row each, as the SPMD partitioner splits
-    JAX's softmax; DTensor's own rule would gather the whole row."""
-    if not (isinstance(x, DTensor) and Shard(x.ndim - 1) in x.placements):
+    """`torch.softmax(x, -1)`. For a DTensor split on its last dim over
+    more than one rank (decode scores over a sequence-split cache) the max
+    and the sum are reduced across the split, one number a row each, as
+    the SPMD partitioner splits JAX's softmax; DTensor's own rule would
+    gather the whole row. A split over one rank gathers nothing and keeps
+    `torch.softmax`'s arithmetic (a one-rank mesh stays bitwise)."""
+    if not (isinstance(x, DTensor) and any(p == Shard(x.ndim - 1) and x.device_mesh.size(i) > 1
+                                           for i, p in enumerate(x.placements))):
         return torch.softmax(x, dim=-1)
     e = torch.exp(x - x.amax(-1, keepdim=True))
     return e / e.sum(-1, keepdim=True)

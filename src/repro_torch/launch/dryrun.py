@@ -26,17 +26,24 @@ holds:
 
 These per-device numbers are DTensor's: the layouts it picks for the ops
 between `shard`'s constraints, which are not the SPMD partitioner's (only
-decode's per-device FLOPs equal JAX's; PERF.md, open questions). DTensor
-on the fake group's CPU mesh re-lays a Shard(i) -> Shard(j) redistribute
-as all-gather + chunk (gloo has no all-to-all), where a CUDA mesh runs an
-all-to-all: such bytes count as "all-gather".
+the dense decode's per-device FLOPs equal JAX's, and the MoE decode's come
+within 1% above them, each model rank computing its groups' router product
+whole; PERF.md, open questions). The MoE
+layers run one local region a layer (`models/layers.py`, `_moe_on_mesh`):
+its ops are rank 0's own groups and expert slices, its collectives the
+gathers of the router and the expert weights into the region and the
+reduction of its output (and their reduce-scatters in the backward).
+DTensor on the fake group's CPU mesh re-lays a Shard(i) -> Shard(j)
+redistribute as all-gather + chunk (gloo has no all-to-all), where a CUDA
+mesh runs an all-to-all: such bytes count as "all-gather"
+(`ALL_TO_ALL_NOTE`, on every mesh record). The MoE region itself makes
+no such re-lay; the layers around it may.
 
 A failure of the DTensor trace leaves the cell "ok" with its global
 numbers and records the failure as `mesh_error`, the per-device numbers
-null (never zero). `KNOWN_MESH_ERRORS` lists the cells whose trace fails
-on an op DTensor has no sharding rule for (ROADMAP.md section 3); any
-other mesh error is a fault. A failure of the global trace fails the cell
-(status "error").
+null (never zero), and the CLI counts it and exits 1: every applicable
+cell of the matrix runs on the mesh. A failure of the global trace fails
+the cell (status "error").
 
 The run stays on the host by design, as JAX's runs on fake CPU devices: it
 takes no device and allocates nothing on the card.
@@ -79,14 +86,6 @@ from .mesh import MeshShape, fake_mesh, make_debug_mesh, make_production_mesh
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
-# (arch, shape) -> the op DTensor has no sharding rule for, which ends the
-# cell's DTensor trace on both production meshes: MoE's dispatch.
-KNOWN_MESH_ERRORS = {
-    (arch, shape): "aten.searchsorted.Tensor"
-    for arch, shapes in (("mixtral-8x22b", ("train_4k", "prefill_32k", "decode_32k", "long_500k")),
-                         ("qwen2-moe-a2.7b", ("train_4k", "prefill_32k", "decode_32k")))
-    for shape in shapes
-}
 _MISSING_RULE = re.compile(r"Operator (\S+) does not have a sharding strategy registered")
 
 

@@ -23,13 +23,23 @@ only the gathered rows.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..distributed import vocab
-from ..distributed.act import flatten, grad_in_layout, match_layout, shard, softmax_last, unflatten
+from ..distributed.act import (
+    context,
+    flatten,
+    grad_in_layout,
+    match_layout,
+    shard,
+    softmax_last,
+    spec_here,
+    unflatten,
+)
 from ..kernels.flash_attention import flash_attention
 from ..obs.trace import span
 from .config import ModelConfig
@@ -335,7 +345,7 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(4, math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
 
 
-def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
+def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int, first_expert: int = 0) -> torch.Tensor:
     """One dispatch group: xf [T, d] -> [T, d].
 
     Sort-based dispatch into per-expert capacity buffers (overflow dropped),
@@ -348,9 +358,18 @@ def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int) -> to
     (JAX's out-of-range row under mode="drop"), which is discarded. The
     combine gathers each token's k contributions and adds them in ascending
     expert order, the order of JAX's scatter-add over the sorted entries,
-    with no atomics: the result repeats bitwise."""
+    with no atomics: the result repeats bitwise.
+
+    The expert weights may hold a slice of the experts or of ff, as one
+    rank of a mesh holds them (`_moe_on_mesh`): experts
+    [first_expert, first_expert + wi_e.shape[0]) or all E experts' ff
+    columns [lo, hi). The routing is always over all E experts, so the drop
+    set is the whole layer's; only the held experts' buffers are filled and
+    multiplied, and the output is this slice's share of the sum (the whole
+    sum when the weights are whole)."""
     cd = dtype_of(cfg.compute_dtype)
     e, k = cfg.n_experts, cfg.top_k
+    e_here = p.wi_e.shape[0]
     t, d = xf.shape
     dev = xf.device
     with span("moe.dispatch"):
@@ -363,10 +382,13 @@ def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int) -> to
         first_of_group = torch.searchsorted(sorted_e, sorted_e, side="left")
         pos_in_e = torch.arange(t * k, device=dev) - first_of_group
         keep = pos_in_e < cap
-        buf_idx = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)  # e * cap: the drop row
+        if e_here < e:  # only the held experts' entries land
+            keep = keep & (sorted_e >= first_expert) & (sorted_e < first_expert + e_here)
+        # e_here * cap: the drop row
+        buf_idx = torch.where(keep, (sorted_e - first_expert) * cap + pos_in_e, e_here * cap)
         token_of = order // k
-        xbuf = xf.new_zeros(e * cap + 1, d).index_copy_(0, buf_idx, xf[token_of])
-        xbuf = xbuf[:e * cap].view(e, cap, d)
+        xbuf = xf.new_zeros(e_here * cap + 1, d).index_copy_(0, buf_idx, xf[token_of])
+        xbuf = xbuf[:e_here * cap].view(e_here, cap, d)
     with span("moe.experts"):
         act = _act(cfg.mlp_act)
         h = torch.bmm(xbuf, p.wi_e.to(cd))
@@ -374,9 +396,9 @@ def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int) -> to
             h = _glu(act, torch.bmm(xbuf, p.wg_e.to(cd)), h)
         else:
             h = act(h)
-        ybuf = torch.bmm(h, p.wo_e.to(cd)).view(e * cap, d)
+        ybuf = torch.bmm(h, p.wo_e.to(cd)).view(e_here * cap, d)
     with span("moe.combine"):
-        gathered = ybuf[torch.clamp_max(buf_idx, e * cap - 1)]
+        gathered = ybuf[torch.clamp_max(buf_idx, e_here * cap - 1)]
         contrib = gathered * (flat_w[order] * keep).to(cd)[:, None]
         # slot_of[i]: where flat entry i (token i // k) landed in the sort.
         slot_of = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=dev))
@@ -387,13 +409,74 @@ def _moe_dispatch_combine(p, xf: torch.Tensor, cfg: ModelConfig, cap: int) -> to
     return out
 
 
+def _moe_on_mesh(p, x: DTensor, cfg: ModelConfig, groups: int, cap: int) -> DTensor:
+    """`moe_apply`'s groups on a mesh: x [B, S, d] -> the combined
+    [B, S, d] in the "residual" layout.
+
+    One local region. The tokens are laid out as JAX's "moe_groups"
+    constraint lays out the [G, Tg, d] slab: split over the batch axes
+    where they divide G (on B, or on S for a batch of one), else
+    replicated, and replicated over "model". The router is gathered whole,
+    each expert weight to its compute layout (d gathered over the FSDP
+    axis, E or ff left split over "model" as the parameter rules split
+    it), both cast to the compute dtype first, and every rank runs
+    `_moe_dispatch_combine` on its own groups as plain tensors; every
+    reshape is of local tensors. Every rank of a data
+    shard routes its groups whole, so the drop set is the one process's for
+    the same `cfg.moe_groups`; with E split a rank fills and multiplies its
+    own experts' buffers, with ff split its ff columns. The result is a
+    partial sum over "model" where the experts are split there, which
+    `shard` reduces: one all-reduce a layer. The gradients taken back out
+    of the region are partial sums over the axes whose ranks saw other
+    tokens or other experts; the redistributes back to the parameters'
+    layouts reduce them (the FSDP reduce-scatter)."""
+    mesh, rules = context()
+    names = mesh.mesh_dim_names
+    mi = names.index(rules.model_axis)
+    b, s, d = x.shape
+    tg = b * s // groups
+    axes = spec_here((groups, tg, d), "moe_groups")[0] or ()
+    axes = (axes,) if isinstance(axes, str) else axes
+    nb = math.prod(mesh.size(names.index(a)) for a in axes)
+    if b % nb and b > 1:
+        axes = ()  # the groups' tokens are no block of B or of S: every rank runs them all
+    split = {names.index(a) for a in axes}
+    tok = Shard(0 if b % nb == 0 else 1)
+    on_model = p.wi_e.placements[mi]  # Shard(0): E over "model"; Shard on ff; or Replicate
+    partial = isinstance(on_model, Shard)
+    rep = Replicate()
+    x_pl = [tok if i in split else rep for i in range(mesh.ndim)]
+    out_pl = [tok if i in split else Partial() if i == mi and partial else rep for i in range(mesh.ndim)]
+    cd = dtype_of(cfg.compute_dtype)
+
+    def weight(w):  # cast, then gathered in the compute dtype, as DTensor gathers a dense weight
+        fwd = [pl if i == mi else rep for i, pl in enumerate(w.placements)]
+        grad = [Partial() if i in split else pl for i, pl in enumerate(fwd)]
+        return w.to(cd).redistribute(mesh, fwd).to_local(grad_placements=grad)
+
+    local = {n: weight(getattr(p, n)) for n in ("wi_e", "wg_e", "wo_e") if hasattr(p, n)}
+    local["router"] = p.router.to(cd).redistribute(mesh, [rep] * mesh.ndim).to_local(
+        grad_placements=[Partial() if i in split or (i == mi and partial) else rep for i in range(mesh.ndim)])
+    first = mesh.get_local_rank(mi) * local["wi_e"].shape[0] if on_model == Shard(0) else 0
+    lp = SimpleNamespace(**local)
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=out_pl)
+    xg = xl.reshape(-1, tg, d)
+    out = torch.stack([_moe_dispatch_combine(lp, xg[g], cfg, cap, first) for g in range(xg.shape[0])])
+    return shard(DTensor.from_local(out.reshape(xl.shape), mesh, out_pl, run_check=False), "residual")
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d].
 
     Dispatch runs per group (`cfg.moe_groups`; 0 or 1 is one group, and a
     token count the groups do not divide falls back to one group, as in
     JAX): each group routes its own tokens into its own capacity buffers.
-    A qwen2-moe-style shared expert adds its sigmoid-gated MLP."""
+    A qwen2-moe-style shared expert adds its sigmoid-gated MLP.
+
+    On a mesh (`activation_sharding`) each rank dispatches its own groups
+    on local tensors and the expert products run in the parameter rules'
+    layouts (`_moe_on_mesh`), as JAX's SPMD partitioner runs its vmapped
+    dispatch; the shared expert runs on DTensors as the dense MLP does."""
     b, s, d = x.shape
     t = b * s
     groups = max(1, cfg.moe_groups)
@@ -401,14 +484,16 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         groups = 1
     tg = t // groups
     cap = moe_capacity(cfg, tg)
-    xg = shard(x.reshape(groups, tg, d), "moe_groups")
-    out = torch.stack([_moe_dispatch_combine(p, xg[g], cfg, cap) for g in range(groups)])
-    out = shard(out, "moe_groups").reshape(t, d)
+    if isinstance(x, DTensor):
+        out = _moe_on_mesh(p, x, cfg, groups, cap)
+    else:
+        xg = x.reshape(groups, tg, d)
+        out = torch.stack([_moe_dispatch_combine(p, xg[g], cfg, cap) for g in range(groups)]).reshape(b, s, d)
     if hasattr(p, "shared"):
         cd = dtype_of(cfg.compute_dtype)
-        gate = torch.sigmoid(_matmul(x.reshape(t, d), p.shared_gate, cd).float()).to(cd)
-        out = out + gate * mlp_apply(p.shared, x, cfg).reshape(t, d)
-    return out.reshape(b, s, d)
+        gate = torch.sigmoid(_matmul(x, p.shared_gate, cd).float()).to(cd)
+        out = out + gate * mlp_apply(p.shared, x, cfg)
+    return out
 
 
 # ---------------------------------------------------------------------------

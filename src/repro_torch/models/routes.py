@@ -46,10 +46,10 @@ def record_routes():
     calls = []
     dispatch = layers._moe_dispatch_combine
 
-    def recording(p, xf, cfg, cap):
+    def recording(p, xf, cfg, cap, *rest):
         logits = layers._matmul(xf, p.router, layers.dtype_of(cfg.compute_dtype)).float()
         calls.append(route_of(logits, cfg.top_k))
-        return dispatch(p, xf, cfg, cap)
+        return dispatch(p, xf, cfg, cap, *rest)
 
     layers._moe_dispatch_combine = recording
     try:

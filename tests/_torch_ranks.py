@@ -51,6 +51,18 @@ MP_B, MP_S, MP_STEPS, MP_LR = 4, 32, 3, 3e-4
 MP_PREFILL, MP_DECODE, MP_DECODE_TOL = 16, 3, 1e-5
 MP_CLI = ["--arch", "qwen1.5-0.5b", "--reduced", "--global-batch", str(MP_B), "--seq-len", str(MP_S),
           "--ckpt-every", "4", "--log-every", "1", "--device", "cpu"]
+# MoE over the mesh, at MP_B x MP_S, MP_STEPS steps, fp32 and the default
+# capacity factor (which drops tokens): the reduced qwen2-moe-a2.7b (E=8
+# split over "model", a shared expert) and the reduced mixtral-8x22b with 3
+# experts (3 does not divide "model": ff split; the sliding window), two
+# dispatch groups each.
+MOE_CONFIGS = {"qwen2-moe-a2.7b": dict(moe_groups=2), "mixtral-8x22b": dict(n_experts=3, moe_groups=2)}
+# An SSM model's first gradients over the mesh (fp32, reduced).
+SSM_ARCH = "mamba2-370m"
+# The train CLI on the reduced qwen2-moe-a2.7b (its one replicated dispatch
+# group), fp32 compute (`cli_losses`).
+MOE_CLI = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--global-batch", str(MP_B), "--seq-len", str(MP_S),
+           "--steps", str(MP_STEPS), "--log-every", "1", "--device", "cpu"]
 # The pipeline cases: (stages, microbatches); MB x D microbatches of tanh(x @ w[s]).
 PIPE_CASES = ((4, 6), (4, 2), (1, 6))
 PIPE_MB, PIPE_D = 8, 16
@@ -372,6 +384,12 @@ def mp_config():
     return dataclasses.replace(reduced_config("qwen1.5-0.5b"), compute_dtype="float32")
 
 
+def moe_config(arch: str):
+    from repro_torch.configs import reduced_config
+
+    return dataclasses.replace(reduced_config(arch), compute_dtype="float32", **MOE_CONFIGS[arch])
+
+
 def mp_batches(vocab: int) -> list:
     rng = np.random.default_rng(7)
     return [rng.integers(0, vocab, (MP_B, MP_S), dtype=np.int32) for _ in range(MP_STEPS)]
@@ -489,6 +507,132 @@ def _cli(args) -> tuple[int | str, str]:
     return rc, buf.getvalue()
 
 
+def cli_losses(args) -> tuple[int | str, list]:
+    """The train CLI in this process with fp32 compute (`reduced_config`
+    in fp32): (exit code or the error raised, every step's loss unrounded,
+    as the step returned it)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import steps, train
+
+    losses, make = [], steps.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*sa):
+            out = step(*sa)
+            losses.append(float(out[2]["loss"]))
+            return out
+
+        return run
+
+    steps.make_train_step = recording
+    train.reduced_config = lambda name: dataclasses.replace(reduced_config(name), compute_dtype="float32")
+    try:
+        return _cli(args)[0], losses
+    finally:
+        steps.make_train_step, train.reduced_config = make, reduced_config
+
+
+def _one_process_cli_losses(args, out_dir: Path) -> tuple:
+    """`cli_losses(args)` in a process of its own, outside the group (no
+    launcher environment): one process, the plain step."""
+    out = out_dir / "one_process_cli.json"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK", "ROLE_RANK",
+                        "MASTER_ADDR", "MASTER_PORT")}
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "cli_losses", str(out), *args],
+                       env=env, cwd=str(REPO), capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        return f"exit {r.returncode}: {r.stderr[-500:]}", []
+    rc, losses = json.loads(out.read_text())
+    return rc, losses
+
+
+def _route_drops(cfg) -> int:
+    """Token-expert entries the one-process forward of the first batch
+    drops at capacity, summed over layers and dispatch groups."""
+    import torch
+
+    from repro_torch.models import loss_fn
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.models.routes import record_routes
+
+    params, _ = _laid_out(cfg, None)
+    with torch.no_grad(), record_routes() as routes:
+        loss_fn(cfg, params, _batch(mp_batches(cfg.vocab)[0], None))
+    return sum(int((torch.bincount(r.experts.flatten(), minlength=cfg.n_experts)
+                    - moe_capacity(cfg, r.experts.shape[0])).clamp_min(0).sum()) for r in routes)
+
+
+def _moe(out: dict, checks: _Checks, mesh, out_dir: Path) -> None:
+    """The MoE configs over the mesh against one process: steps, first
+    gradients, prefill and decode; an SSM model's first gradients; then
+    the MoE train CLI."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.configs import reduced_config
+
+    rank = dist.get_rank()
+    for arch in MOE_CONFIGS:
+        cfg = moe_config(arch)
+        losses, norms, params, live, _ = _mp_train(cfg, mesh)
+        grads = _first_grads(cfg, mesh)
+        decode_logits = _mp_decode(cfg, mesh)
+        wi = live.get_submodule("blocks.0.moe").wi_e
+        out[f"{arch}.losses"], out[f"{arch}.grad_norms"] = losses, norms
+        out[f"{arch}.wi_e_placements"] = np.array(str(wi.placements))
+        # E=8 splits over "model" (2); 3 experts do not, and ff does.
+        want = 0 if cfg.n_experts % 2 == 0 else 2
+        checks.add(f"{arch}.expert_weights_split_as_the_rules_say",
+                   isinstance(wi, DTensor) and wi.placements[1] == Shard(want), wi.placements)
+        if rank != 0:
+            continue
+        ref_losses, ref_norms, ref_params, _, _ = _mp_train(cfg, None)
+        out[f"{arch}.one.losses"] = ref_losses
+        checks.close(f"{arch}.loss_vs_one_process", losses, ref_losses)
+        checks.close(f"{arch}.grad_norm_vs_one_process", norms, ref_norms)
+        ref_grads = _first_grads(cfg, None)
+        rel = {n: float(np.linalg.norm(grads[n] - g) / np.linalg.norm(g)) for n, g in ref_grads.items()}
+        checks.add(f"{arch}.first_gradients_vs_one_process", max(rel.values()) <= 1e-5,
+                   max(rel.items(), key=lambda kv: kv[1]))
+        worst = max(float(np.max(np.abs(params[n] - ref_params[n]) - (1e-5 * np.abs(ref_params[n]) + 0.1 * MP_LR)))
+                    for n in ref_params)
+        checks.add(f"{arch}.params_vs_one_process", worst <= 0, f"worst excess over rtol 1e-5 + 0.1 lr: {worst}")
+        ref_decode = _mp_decode(cfg, None)
+        err = float(np.abs(decode_logits - ref_decode).max() / np.abs(ref_decode).max())
+        checks.add(f"{arch}.prefill_and_decode_vs_one_process", err <= MP_DECODE_TOL
+                   and np.array_equal(decode_logits.argmax(-1), ref_decode.argmax(-1)),
+                   f"max abs error / max |logit|: {err}")
+        drops = _route_drops(cfg)
+        out[f"{arch}.dropped_entries"] = np.array(drops)
+        checks.add(f"{arch}.capacity_drops_present", drops > 0, f"{drops} token-expert entries dropped")
+
+    # The SSD scan runs on each rank's slab (`ssm._ssd`): its shared inputs'
+    # gradients are partial sums over the ranks that split its output.
+    cfg = dataclasses.replace(reduced_config(SSM_ARCH), compute_dtype="float32")
+    grads = _first_grads(cfg, mesh)
+    if rank == 0:
+        ref_grads = _first_grads(cfg, None)
+        rel = {n: float(np.linalg.norm(grads[n] - g) / np.linalg.norm(g)) for n, g in ref_grads.items()}
+        checks.add(f"{SSM_ARCH}.first_gradients_vs_one_process", max(rel.values()) <= 1e-5,
+                   max(rel.items(), key=lambda kv: kv[1]))
+
+    # The train CLI over the mesh (one dispatch group, replicated) against
+    # the same CLI in one process.
+    rc, losses = cli_losses(MOE_CLI + ["--model-parallel", "2"])
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rc)
+    checks.add("moe_cli_runs_exit_0", every == [0] * len(every), every)
+    if rank == 0:
+        rc1, ref = _one_process_cli_losses(MOE_CLI, out_dir)
+        out["moe_cli.losses"], out["moe_cli.one.losses"] = np.array(losses), np.array(ref)
+        checks.add("moe_cli_one_process_exit_0", rc1 == 0, rc1)
+        checks.close("moe_cli_losses_vs_one_process", np.array(losses), np.array(ref))
+    dist.barrier()
+
+
 def _leaf_files(step_dir: Path) -> dict:
     manifest = json.loads((step_dir / "manifest.json").read_text())
     return {e["name"]: np.load(step_dir / e["file"]) for e in manifest["leaves"]}
@@ -558,6 +702,7 @@ def _model_parallel(out: dict, checks: _Checks, out_dir: Path) -> None:
                   **{"opt.mu." + n: t.full_tensor().numpy() for n, t in tree2["opt"]["mu"].items()}}
     layouts += [t.placements == live2.get_parameter(n).placements for n, t in tree2["params"].items()]
     checks.add("restored_leaves_take_the_running_layout", all(layouts))
+    _moe(out, checks, mesh, out_dir)
     if rank != 0:
         return
 
@@ -647,6 +792,9 @@ def against_reference(what: str, run: dict) -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1] == "cli_losses":  # cli_losses OUT_JSON CLI_ARGS...
+        Path(sys.argv[2]).write_text(json.dumps(cli_losses(sys.argv[3:])))
+        sys.exit(0)
     if sys.argv[1] == "reference":
         ref = {}
         for what in REFERENCE_KEYS:

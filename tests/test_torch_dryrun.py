@@ -431,18 +431,16 @@ def test_dryrun_cli_writes_only_its_own_results(tmp_path):
 
 def test_dryrun_skips_match_design():
     """long_500k runs exactly the sub-quadratic archs, as JAX's dry run.
-    On the 16x16 mesh the MoE arch's DTensor trace fails on exactly the op
-    `KNOWN_MESH_ERRORS` lists for it (its dispatch's searchsorted, which
-    DTensor has no sharding rule for; ROADMAP.md section 3) and its global
-    numbers stand; the others' traces all run."""
+    On the 16x16 mesh every one of them, the MoE arch included, also runs
+    its DTensor trace: no ok cell records a mesh error."""
     recs = {a: dryrun.run_cell(a, "long_500k", save=False) for a in ARCHS}
     assert {a for a, r in recs.items() if r["status"] == "ok"} == {"mamba2-370m", "hymba-1.5b", "mixtral-8x22b"}
     assert {a for a, r in recs.items() if r["status"] == "skipped"} == set(ARCHS) - {
         "mamba2-370m", "hymba-1.5b", "mixtral-8x22b"}
     for a, r in recs.items():
         if r["status"] == "ok":
-            assert dryrun.missing_rule(r.get("mesh_error")) == dryrun.KNOWN_MESH_ERRORS.get((a, "long_500k")), a
-            assert r["flops"] > 0
+            assert "mesh_error" not in r, (a, r.get("mesh_error"))
+            assert r["flops"] > 0 and r["flops_per_device"] > 0, a
 
 
 def test_one_device_mesh_records_temp_bytes():
@@ -518,20 +516,32 @@ def test_flash_sharding_rule_keeps_the_gqa_grouping(monkeypatch, kv):
     assert fa_ops._heads_split_ok(4, 1, (4, 2)) is False and fa_ops._heads_split_ok(4, 2, (4, 2)) is True
 
 
-def test_fake_mesh_leaves_no_process_group():
+def test_fake_mesh_leaves_no_process_group(monkeypatch):
     """The fake group is gone after a cell, also after a cell whose DTensor
-    trace fails (MoE's dispatch has no DTensor rule): that cell keeps its
-    global numbers, its per-device ones are null, and the error names the
-    op. A second group is refused."""
-    ok = dryrun.run_cell("qwen1.5-0.5b", dataclasses.replace(SHAPES["decode_32k"], global_batch=32, seq_len=256),
-                         save=False)
+    trace fails (forced here in a dense cell: the decode query's layout
+    step raises DTensor's error for an op without a sharding rule): that
+    cell keeps its global numbers, its per-device ones are null, and the
+    error names the op. A second group is refused."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import layers
+
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=32, seq_len=256)
+    ok = dryrun.run_cell("qwen1.5-0.5b", shape, save=False)
     assert ok["status"] == "ok" and not dist.is_initialized()
-    bad = dryrun.run_cell("qwen2-moe-a2.7b", dataclasses.replace(SHAPES["decode_32k"], global_batch=32, seq_len=256),
-                          moe_groups=1, save=False)
+    assert "mesh_error" not in ok and ok["flops_per_device"] > 0
+
+    def no_rule(x, like, dims):
+        if isinstance(x, DTensor):
+            raise NotImplementedError("Operator aten.searchsorted.Tensor does not have a sharding strategy registered.")
+        return x
+
+    monkeypatch.setattr(layers, "match_layout", no_rule)
+    bad = dryrun.run_cell("qwen1.5-0.5b", shape, save=False)
     assert bad["status"] == "ok" and not dist.is_initialized()
     assert dryrun.missing_rule(bad["mesh_error"]) == "aten.searchsorted.Tensor"
-    assert bad["flops"] > 0 and bad["flops_per_device"] is None and bad["collective_bytes"] is None
-    assert bad["memory"]["temp_bytes"] is None and bad["memory"]["argument_bytes"] > 0
+    assert bad["flops"] == ok["flops"] and bad["flops_per_device"] is None and bad["collective_bytes"] is None
+    assert bad["memory"]["temp_bytes"] is None and bad["memory"]["argument_bytes"] == ok["memory"]["argument_bytes"]
     with fake_mesh(MeshShape(("data", "model"), (2, 2))):
         with pytest.raises(RuntimeError, match="already initialised"):
             with fake_mesh(MeshShape(("data", "model"), (2, 2))):
@@ -540,12 +550,14 @@ def test_fake_mesh_leaves_no_process_group():
 
 
 MESH_CELLS = [(shape, multi_pod) for shape in ("train_4k", "prefill_32k", "decode_32k") for multi_pod in (False, True)]
+MOE_MESH_CELLS = [("qwen2-moe-a2.7b", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+                  ("qwen2-moe-a2.7b", "decode_32k"), ("mixtral-8x22b", "decode_32k")]
 
 _JAX_CELLS = r"""
 import json, sys
 from repro.launch import dryrun
-for shape, multi_pod in json.loads(sys.argv[1]):
-    r = dryrun.run_cell("qwen1.5-0.5b", shape, multi_pod=multi_pod, save=False)
+for arch, shape, multi_pod in json.loads(sys.argv[1]):
+    r = dryrun.run_cell(arch, shape, multi_pod=multi_pod, save=False)
     print(json.dumps({k: r.get(k) for k in ("status", "hlo_flops", "collective_bytes", "memory",
                                               "per_device_argument_gib", "n_devices")}), flush=True)
 """
@@ -553,14 +565,17 @@ for shape, multi_pod in json.loads(sys.argv[1]):
 
 @pytest.fixture(scope="module")
 def jax_mesh_records(tmp_path_factory):
-    """JAX's records of `MESH_CELLS` (`repro.launch.dryrun.run_cell`, which
-    sets XLA_FLAGS when imported), in one process of their own."""
+    """JAX's records of `MESH_CELLS` (qwen1.5-0.5b) and `MOE_MESH_CELLS`
+    (16x16), keyed (arch, shape, multi_pod) (`repro.launch.dryrun.run_cell`,
+    which sets XLA_FLAGS when imported), in one process of their own."""
+    cells = ([("qwen1.5-0.5b", shape, mp) for shape, mp in MESH_CELLS]
+             + [(arch, shape, False) for arch, shape in MOE_MESH_CELLS])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", _JAX_CELLS, json.dumps(MESH_CELLS)], env=env, capture_output=True,
+    r = subprocess.run([sys.executable, "-c", _JAX_CELLS, json.dumps(cells)], env=env, capture_output=True,
                        text=True, timeout=600, cwd=tmp_path_factory.mktemp("jax_dryrun"))
     assert r.returncode == 0, r.stderr[-2000:]
     recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
-    return dict(zip(MESH_CELLS, recs, strict=True))
+    return dict(zip(map(tuple, cells), recs, strict=True))
 
 
 @pytest.mark.parametrize("shape,multi_pod", MESH_CELLS)
@@ -574,7 +589,7 @@ def test_mesh_record_beside_jax(jax_mesh_records, shape, multi_pod):
     on decode; the port's per-device temporaries are no more than JAX's.
     The port's per-device numbers are DTensor's layouts, not the SPMD
     partitioner's (PERF.md, open questions)."""
-    jrec = jax_mesh_records[(shape, multi_pod)]
+    jrec = jax_mesh_records[("qwen1.5-0.5b", shape, multi_pod)]
     rec = dryrun.run_cell("qwen1.5-0.5b", shape, multi_pod=multi_pod, save=False)
     print("port", json.dumps({k: rec.get(k) for k in ("mesh", "flops", "flops_per_device", "collective_bytes",
                                                       "memory")}))
@@ -591,6 +606,38 @@ def test_mesh_record_beside_jax(jax_mesh_records, shape, multi_pod):
     if shape == "decode_32k":
         assert rec["flops_per_device"] == jrec["hlo_flops"]  # one rank's products, as the partitioned HLO's
     assert 0 < rec["memory"]["temp_bytes"] <= jrec["memory"]["temp_bytes"]
+
+
+@pytest.mark.parametrize("arch,shape", MOE_MESH_CELLS)
+def test_moe_mesh_record_beside_jax(jax_mesh_records, arch, shape):
+    """The MoE cells on 16x16, the port's record beside JAX's, both printed
+    (PERF.md's table of the MoE mesh cells is built from them). Each rank
+    dispatches its own token groups and runs the expert products in the
+    parameter rules' layouts (`layers._moe_on_mesh`): the trace runs, the
+    per-device argument bytes are JAX's, the per-device FLOPs times the
+    devices cover the global count and come to no more than JAX's
+    per-device HLO FLOPs, within 1% above them on decode (each model rank
+    computes its groups' router product whole, where JAX splits it), the
+    temporaries are no more than JAX's, and every collective kind nonzero
+    in JAX's among all-gather and all-reduce is nonzero in the port's."""
+    jrec = jax_mesh_records[(arch, shape, False)]
+    rec = dryrun.run_cell(arch, shape, save=False)
+    print("port", json.dumps({k: rec.get(k) for k in ("arch", "shape", "mesh", "flops", "flops_per_device",
+                                                      "collective_bytes", "memory")}))
+    print("jax ", json.dumps(jrec))
+    assert rec["status"] == jrec["status"] == "ok" and "mesh_error" not in rec
+    assert rec["n_devices"] == jrec["n_devices"] == 256
+    assert rec["memory"]["argument_bytes"] == jrec["memory"]["argument_bytes"]
+    assert rec["per_device_argument_gib"] == jrec["per_device_argument_gib"]
+    assert rec["flops_per_device"] * rec["n_devices"] >= rec["flops"]
+    if shape == "decode_32k":
+        assert jrec["hlo_flops"] <= rec["flops_per_device"] <= 1.01 * jrec["hlo_flops"]
+    else:
+        assert rec["flops_per_device"] <= jrec["hlo_flops"]
+    assert 0 < rec["memory"]["temp_bytes"] <= jrec["memory"]["temp_bytes"]
+    for kind in ("all-gather", "all-reduce"):
+        if jrec["collective_bytes"].get(kind, 0) > 0:
+            assert rec["collective_bytes"].get(kind, 0) > 0, kind
 
 
 def test_seq_shard_changes_the_collectives():

@@ -1,6 +1,6 @@
 """Model parallelism of the port over 4 gloo ranks on the CPU: the train
 step and the train CLI over a (data=2, model=2) `build_mesh`, the reduced
-qwen1.5-0.5b in fp32, global batch 4 x 32.
+qwen1.5-0.5b and two reduced MoE configs in fp32, global batch 4 x 32.
 
 One module-scoped launch runs `tests/_torch_ranks.py model_parallel`
 under `torch.distributed.run` (4 processes, one torch thread each). The
@@ -18,7 +18,17 @@ ranks record named checks:
   that of 8 uninterrupted steps; --model-parallel 3 raises ValueError
   before any step;
 - a checkpoint moves between a (2, 2) and a (4, 1) mesh bitwise in every
-  restored leaf, each restored in the running model's layout.
+  restored leaf, each restored in the running model's layout;
+- two MoE configs in fp32 with two dispatch groups and the default
+  capacity factor (tokens are dropped): the reduced qwen2-moe-a2.7b (E=8
+  split over "model", a shared expert) and the reduced mixtral-8x22b with
+  3 experts (ff split over "model", the sliding window), each held to the
+  one-process step, gradients, prefill and decode as above;
+- the reduced mamba2-370m's first gradients as above (the SSD scan on
+  each rank's slab);
+- the CLI with --arch qwen2-moe-a2.7b --reduced --model-parallel 2 (one
+  replicated dispatch group, fp32 compute): 3 steps, losses at rtol 1e-5
+  of the same CLI in one process.
 The one-process step is held to JAX's `make_train_step`
 (`tests/test_torch_train.py`); JAX's own train CLI cannot take a step
 under its mesh (ROADMAP.md section 3), so the mesh is held to it."""
@@ -46,10 +56,46 @@ def test_mesh_lays_out_params_and_moments(ranks):
     _held(ranks, "mesh_is_data2_model2", "params_and_moments_are_dtensors")
 
 
-@pytest.mark.parametrize("check", ["loss_vs_one_process", "grad_norm_vs_one_process",
-                                   "first_gradients_vs_one_process", "params_vs_one_process"])
+STEP_CHECKS = ["loss_vs_one_process", "grad_norm_vs_one_process", "first_gradients_vs_one_process",
+               "params_vs_one_process"]
+
+
+@pytest.mark.parametrize("check", STEP_CHECKS + [f"{arch}.{c}" for arch in R.MOE_CONFIGS for c in STEP_CHECKS])
 def test_step_matches_one_process(ranks, check):
     _held(ranks, check)
+
+
+@pytest.mark.parametrize("arch", list(R.MOE_CONFIGS))
+def test_moe_drops_tokens_and_splits_experts_by_the_rules(ranks, arch):
+    """The default capacity factor drops token-expert entries in the
+    one-process forward (so the drop set is part of what the mesh step
+    matches), and the expert weights are split over "model" on E (8
+    experts) or on ff (3 experts), as the parameter rules say."""
+    _held(ranks, f"{arch}.capacity_drops_present", f"{arch}.expert_weights_split_as_the_rules_say")
+
+
+@pytest.mark.parametrize("arch", list(R.MOE_CONFIGS))
+def test_moe_prefill_and_decode_match_one_process(ranks, arch):
+    """As `test_prefill_and_decode_match_one_process`, on the MoE configs:
+    each rank dispatches its own token groups in the prefill and in every
+    decode step."""
+    _held(ranks, f"{arch}.prefill_and_decode_vs_one_process")
+
+
+def test_ssm_first_gradients_match_one_process(ranks):
+    """The reduced mamba2-370m's first gradients over the mesh at relative
+    L2 1e-5 a leaf: the SSD scan runs on each rank's slab, and the inputs
+    it shares across ranks that split its output (A over the data ranks, B
+    and C over the model ranks) get their gradients summed."""
+    _held(ranks, f"{R.SSM_ARCH}.first_gradients_vs_one_process")
+
+
+def test_moe_cli_matches_one_process(ranks):
+    """--arch qwen2-moe-a2.7b --reduced --model-parallel 2: every rank
+    exits 0 and the 3 losses are the one-process CLI's at rtol 1e-5 (both
+    in fp32 compute; in bf16 the reduction order alone moves the dense
+    model's loss by 3e-5)."""
+    _held(ranks, "moe_cli_runs_exit_0", "moe_cli_one_process_exit_0", "moe_cli_losses_vs_one_process")
 
 
 def test_microbatches_two_against_one(ranks):
