@@ -50,8 +50,10 @@ phases, each printing JSON lines:
      at block_apps 1 and 0, and eight checks: J finite, best of its history
      and conserving traffic; block_apps=0 and trace=False bitwise the same;
      two chunks and B = 1 solves of lanes 0-3 at rtol 1e-5 (on at most two
-     lanes whose hosts differ on a near-tie, 1e-3); `profile_round_phases`
-     over the fleet finite, its shares summing to 1; the four methods finite on lanes 0-7 with
+     lanes whose hosts differ on a near-tie, 1e-3); one traced solve over
+     the fleet bitwise the untraced one, its round phases read from the
+     engine's own spans (`solve_fleet.round.*`: finite, within their
+     round, one round span a round); the four methods finite on lanes 0-7 with
      hosts only on real nodes; `repair_placement` off two dead nodes (on
      lane 0, or the first lane that hosts a partition on a removable
      non-endpoint node), and the identity with every node live; every
@@ -1037,7 +1039,7 @@ def phase7(core, counter, problems):
     import torch
     from repro_torch import fleet
     from repro_torch.core import placement
-    from repro_torch.obs import profile_round_phases
+    from repro_torch.obs import trace as obs_trace
 
     kw = dict(method="ALT", m_max=4, t_phi=5, round_to=8)
     torch.cuda.synchronize()
@@ -1202,11 +1204,24 @@ def phase7(core, counter, problems):
                     "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",)},
         split["round_eval_ms"] + split["placement_ms"] + split["forwarding_ms"],
     )
-    # The round-phase profiler over the same fleet (best of 3, CUDA events).
-    phases = profile_round_phases(problems, t_phi=kw["t_phi"], round_to=kw["round_to"])
-    shares = sum(phases[f"{n}_share"] for n in ("placement", "forwarding", "round_eval"))
-    if not all(math.isfinite(x) for x in phases.values()) or abs(shares - 1) > 1e-3:
-        raise AssertionError(f"phase 7: profile_round_phases {phases}")
+    # The round phases from the engine's own spans, over one traced solve
+    # of the same fleet (host clocks; the execute span ends after the
+    # device while tracing is on).
+    obs_trace.configure(enabled=True)
+    obs_trace.reset()
+    try:
+        traced = counter.run(lambda: fleet.solve_fleet(problems, **kw))
+        spans = obs_trace.TRACER.events()
+    finally:
+        obs_trace.configure(enabled=False)
+        obs_trace.reset()
+    if not (np.array_equal(traced.J, res.J) and np.array_equal(traced.hosts, res.hosts)):
+        raise AssertionError("phase 7: tracing changed the solve")
+    phases = round_phases(spans, traced.rounds)
+    inner = phases["placement_ms"] + phases["forwarding_ms"] + phases["eval_ms"]
+    if not (all(math.isfinite(x) and x > 0 for x in phases.values()) and inner <= phases["round_ms"]
+            and phases["round_spans"] == traced.rounds):
+        raise AssertionError(f"phase 7: round phases from the spans {phases}")
     emit({
         "phase": 7, "name": "fleet", "B": b, "V": v, "A": a, "K": k, **kw,
         "families": {f: sum(1 for i in range(FLEET_B) if i % 4 == j) for j, f in enumerate(fleet.FAMILIES)},
@@ -1223,9 +1238,34 @@ def phase7(core, counter, problems):
         "chunk_half_vs_single": chunk_vs, "sequential_lanes_0_3_vs_fleet": seq_vs, "methods_lanes_0_7": methods,
         "repair": {"lane": lane, "dead": dead, "hosts_moved": moved, "identity_all_live": True},
     })
-    del res, blocked, untraced, chunked, stacked, state
+    del res, blocked, untraced, chunked, traced, stacked, state
     torch.cuda.empty_cache()
     return vs_plain["max_abs_err"], J
+
+
+def round_phases(spans, rounds: int) -> dict:
+    """Milliseconds a round of the engine's spans in one traced solve (the
+    round, each phase, the host's waits on the device inside the round,
+    execute over the rounds) and the host syncs a round and a call."""
+    by_id = {e.id: e for e in spans}
+
+    def per_round(name):
+        return 1e3 * sum(e.dur for e in spans if e.name == name) / rounds
+
+    def in_round(e):
+        while e is not None and e.name != "solve_fleet.round":
+            e = by_id.get(e.parent)
+        return e is not None
+
+    round_spans = [e for e in spans if e.name == "solve_fleet.round"]
+    return {
+        "round_spans": len(round_spans), "round_ms": per_round("solve_fleet.round"),
+        "execute_ms": per_round("solve_fleet.execute"),
+        **{f"{p}_ms": per_round(f"solve_fleet.round.{p}") for p in ("placement", "forwarding", "eval")},
+        "host_wait_ms": 1e3 * sum(e.dur for e in spans if e.name == "device.sync" and in_round(e)) / rounds,
+        "host_syncs_per_round": sum(e.attrs["host_syncs"] for e in round_spans) / rounds,
+        "host_syncs_per_call": sum(e.attrs["host_syncs"] for e in spans if e.name == "solve_fleet.call"),
+    }
 
 
 # Phase 8: run_control's CLI defaults over phase 7's fleet, with both

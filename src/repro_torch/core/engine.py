@@ -7,12 +7,12 @@ batch: placement is fed the previous round's `round_eval`, then T_phi
 forwarding sweeps, then one `round_eval` closes the round; the best
 iterate, the stall/patience counters and the per-lane freeze masks are
 updated on the device. `engine_solve` loops rounds while any lane is live
-and `m < m_max`, reading one `any(active)` scalar per round (the only host
-sync of the loop). With a process `group` (the fleet mesh of
-fleet/solve.py, each rank holding its own lanes) that flag is one
-`all_reduce(MAX)` over the group a round, JAX's one collective a trip: every
-rank runs the same rounds, so `m`, the history and the trace have one
-length on every rank. Frozen lanes are masked out of every carry update, so
+and `m < m_max`, reading one `any(active)` scalar per round (the loop's
+only host sync outside the placement sweep's min-plus closure). With a
+process `group` (the fleet mesh of fleet/solve.py, each rank holding its
+own lanes) that flag is one `all_reduce(MAX)` over the group a round, JAX's
+one collective a trip: every rank runs the same rounds, so `m`, the
+history and the trace have one length on every rank. Frozen lanes are masked out of every carry update, so
 extra rounds driven by live lanes leave them bit-identical, and the
 `[B, m_max + 1]` history is NaN past each lane's freeze point.
 
@@ -22,6 +22,12 @@ already produced: the solve's outputs are bitwise the same with or without
 it, and it adds no host sync. `lane_chunk=k` runs the same engine on
 consecutive k-lane slices instead of the fused batch, with the same
 per-lane results.
+
+While `obs.trace` is on, each trip of the round loop is one
+`solve_fleet.round` span (`round_step` and the exit-flag read that ends
+the trip, with the round's host syncs), holding one span a phase:
+`solve_fleet.round.placement`, `.forwarding` and `.eval`. The sequential
+solvers reach this engine at B=1, so their rounds carry the same names.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ import torch
 import torch.distributed as dist
 
 from ..device import solve_device
+from ..obs.sync import read_flag, sync_span
+from ..obs.trace import span
 from .forwarding import forwarding_update
 from .marginals import round_eval
 from .placement import placement_update, structured_init
@@ -129,12 +137,15 @@ def round_step(
 
     Stall is measured against the best J before this round's update, and
     every carry slot of a frozen lane is masked back to its old value."""
-    nxt = placement_update(
-        problem, carry.state, carry.aux["ctg"], colocate=colocate, solver=solver,
-        block_apps=block_apps,
-    )
-    nxt = forwarding_update(problem, nxt, t_phi=t_phi, alpha=alpha, solver=solver)
-    J, aux_nxt = round_eval(problem, nxt, solver=solver)
+    with span("solve_fleet.round.placement"):
+        nxt = placement_update(
+            problem, carry.state, carry.aux["ctg"], colocate=colocate, solver=solver,
+            block_apps=block_apps,
+        )
+    with span("solve_fleet.round.forwarding", t_phi=t_phi):
+        nxt = forwarding_update(problem, nxt, t_phi=t_phi, alpha=alpha, solver=solver)
+    with span("solve_fleet.round.eval"):
+        J, aux_nxt = round_eval(problem, nxt, solver=solver)
 
     improved = J < carry.best_J * (1.0 - tol)
     stall_nxt = torch.where(improved, 0, carry.stall + 1)
@@ -180,10 +191,10 @@ def round_step(
 def _any_active(active: torch.Tensor, group) -> bool:
     """Whether any lane is live: on this rank alone, or over `group`."""
     if group is None:
-        return bool(active.any())
+        return read_flag(active.any(), "engine.exit_flag")
     flag = active.any().to(torch.int32)
     dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-    return bool(flag)
+    return read_flag(flag, "engine.exit_flag")
 
 
 def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate, track_best,
@@ -228,11 +239,16 @@ def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate
         history=history,
         trace=trace0,
     )
-    while carry.m < m_max and _any_active(carry.active, group):
-        carry = round_step(
-            stacked, carry, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
-            colocate=colocate, solver=solver, block_apps=block_apps,
-        )
+    # Each trip ends in the next trip's exit test, so that read (which
+    # waits for the round's device work) lies inside the round's span.
+    live = carry.m < m_max and _any_active(carry.active, group)
+    while live:
+        with sync_span("solve_fleet.round", m=carry.m + 1):
+            carry = round_step(
+                stacked, carry, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
+                colocate=colocate, solver=solver, block_apps=block_apps,
+            )
+            live = carry.m < m_max and _any_active(carry.active, group)
     if track_best:
         out_state, out_obj = carry.best_state, carry.best_obj
     else:

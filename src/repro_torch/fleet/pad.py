@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.structs import BIG, Apps, CostModel, Network, Problem
+from ..obs.sync import count_syncs
 
 # Compute rate of a padded (or dead) node: the marginal compute cost
 # C'(0) = 1/NU_PAD dominates any congested real marginal, while C(0) = 0
@@ -203,6 +204,8 @@ def stack_problems(
         return {k: torch.stack([getattr(getattr(p, group), k) for p in padded]) for k in names}
 
     def scalars(name):
+        # A blocking copy from the host: on the card the host waits for it.
+        count_syncs(1)
         return torch.tensor(
             [float(getattr(p.cost, name)) for p in problems], dtype=torch.float32, device=dev
         )

@@ -14,9 +14,13 @@ sequential solve of the unpadded problem up to float32 rounding.
   * `envelope_cap_gb=G` caps the chunk size so one device's phi-shaped
     `[B, A, K, V, V]` buffers stay under G GB.
   * `trace=True` (default) carries the engine's round trace out as
-    `FleetResult.trace`; the host-side stack / execute / gather boundaries
-    are `obs.trace` spans, and per-solve telemetry (chunks, pad overhead,
-    rounds against budget) lands in `obs.metrics.registry`. The JAX
+    `FleetResult.trace`. Apart from it, while `obs.trace` is on, each call
+    is one `solve_fleet.call` span, the root of its validate / stack /
+    execute / gather spans (and, inside execute, the engine's round and
+    phase spans), with the host syncs it made as `host_syncs`; the count
+    itself (`device.host_syncs`, obs/sync.py) and per-solve telemetry
+    (chunks, pad overhead, rounds against budget) land in
+    `obs.metrics.registry` either way. The JAX
     version's `fleet.compile.cold|warm` counters have no counterpart:
     nothing here compiles per padded shape.
   * `shard=True` lays the instance axis over a 1-D fleet mesh of ranks
@@ -55,6 +59,7 @@ from ..distributed.sharding import (
 )
 from ..obs.metrics import registry as obs_registry
 from ..obs.roundtrace import FleetTrace
+from ..obs.sync import count_syncs, sync_span
 from ..obs.trace import span, tracer_enabled
 from .pad import NU_PAD, fleet_envelope, fleet_part_envelope, stack_problems, unify_hop_bound
 
@@ -72,42 +77,53 @@ def _validate_problems(problems) -> None:
     """Reject inputs that would push NaN/inf through the fixed point, naming
     the instance (and app) at fault. A node with nu <= NU_PAD is dead, so
     an empty live-host set and a dead endpoint of a live app are input
-    errors too."""
-    for i, p in enumerate(problems):
-        arrays = {
-            k: getattr(grp, k).detach().cpu().numpy()
-            for grp, ks in ((p.net, ("adj", "mu", "nu")), (p.apps, ("lam", "L", "w")))
-            for k in ks
-        }
-        for name, arr in arrays.items():
-            if not np.isfinite(arr).all():
-                raise ValueError(
-                    f"solve_fleet: instance {i}: non-finite values in {name!r} — refusing to "
-                    "propagate NaN/inf through the traffic fixed point"
-                )
-        if (arrays["lam"] < 0).any():
-            raise ValueError(f"solve_fleet: instance {i}: negative arrival rate lam")
-        if (arrays["mu"] <= 0).any():
-            raise ValueError(f"solve_fleet: instance {i}: non-positive link rate mu")
-        if (arrays["nu"] <= 0).any():
-            raise ValueError(f"solve_fleet: instance {i}: non-positive compute rate nu")
-        live = arrays["nu"] > NU_PAD
-        lam = arrays["lam"]
-        if not live.any():
-            a = int(np.argmax(lam > 0)) if (lam > 0).any() else 0
+    errors too. Each instance is read to the host: eight copies, counted
+    as host syncs at once."""
+    started = 0
+    try:
+        for i, p in enumerate(problems):
+            started += 1
+            _validate_problem(i, p)
+    finally:
+        count_syncs(8 * started)
+
+
+def _validate_problem(i: int, p: Problem) -> None:
+    """`_validate_problems` on instance `i`."""
+    arrays = {
+        k: getattr(grp, k).detach().cpu().numpy()
+        for grp, ks in ((p.net, ("adj", "mu", "nu")), (p.apps, ("lam", "L", "w")))
+        for k in ks
+    }
+    for name, arr in arrays.items():
+        if not np.isfinite(arr).all():
             raise ValueError(
-                f"solve_fleet: instance {i}, app {a}, stage 0: live-host set is empty — all "
-                f"{live.size} nodes are dead (nu <= NU_PAD = {NU_PAD:g}), no node can host any stage"
+                f"solve_fleet: instance {i}: non-finite values in {name!r} — refusing to "
+                "propagate NaN/inf through the traffic fixed point"
             )
-        src = p.apps.src.cpu().numpy()
-        dst = p.apps.dst.cpu().numpy()
-        for a in np.flatnonzero(lam > 0):
-            for role, node in (("src", int(src[a])), ("dst", int(dst[a]))):
-                if not live[node]:
-                    raise ValueError(
-                        f"solve_fleet: instance {i}, app {int(a)}: {role} node {node} is dead — its "
-                        "traffic cannot be " + ("injected" if role == "src" else "absorbed")
-                    )
+    if (arrays["lam"] < 0).any():
+        raise ValueError(f"solve_fleet: instance {i}: negative arrival rate lam")
+    if (arrays["mu"] <= 0).any():
+        raise ValueError(f"solve_fleet: instance {i}: non-positive link rate mu")
+    if (arrays["nu"] <= 0).any():
+        raise ValueError(f"solve_fleet: instance {i}: non-positive compute rate nu")
+    live = arrays["nu"] > NU_PAD
+    lam = arrays["lam"]
+    if not live.any():
+        a = int(np.argmax(lam > 0)) if (lam > 0).any() else 0
+        raise ValueError(
+            f"solve_fleet: instance {i}, app {a}, stage 0: live-host set is empty — all "
+            f"{live.size} nodes are dead (nu <= NU_PAD = {NU_PAD:g}), no node can host any stage"
+        )
+    src = p.apps.src.cpu().numpy()
+    dst = p.apps.dst.cpu().numpy()
+    for a in np.flatnonzero(lam > 0):
+        for role, node in (("src", int(src[a])), ("dst", int(dst[a]))):
+            if not live[node]:
+                raise ValueError(
+                    f"solve_fleet: instance {i}, app {int(a)}: {role} node {node} is dead — its "
+                    "traffic cannot be " + ("injected" if role == "src" else "absorbed")
+                )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -466,140 +482,149 @@ def solve_fleet(
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     problems = list(problems)
-    if validate:
-        _validate_problems(problems)
-    if warm_active is not None and warm_start is None:
-        raise ValueError("warm_active requires warm_start")
-    if warm_start is not None and method == "CongUnaware":
-        raise ValueError(
-            "warm_start is meaningless for CongUnaware (a zero-iteration baseline that never "
-            "runs the engine)"
-        )
-    if keep_state and method == "CongUnaware":
-        raise ValueError("keep_state is unsupported for CongUnaware")
-    dev = solve_device(problems[0].device, device) if problems else torch.device(device)
-    mesh, n_dev, reason = _plan_mesh(shard, devices, dev)
-    if lane_chunk and mesh is not None:
-        raise ValueError(
-            f"lane_chunk={lane_chunk} is incompatible with a fleet mesh: every rank must run the "
-            "fused batch, whose round loop exits on one flag over the mesh — use lane_chunk=0 "
-            "(or leave it None) when shard=True"
-        )
-    solve_kw = dict(
-        method=method, m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
-        solver=solver, trace=trace, keep_state=keep_state, block_apps=block_apps,
-        lane_chunk=lane_chunk or 0, device=device,
-    )
-    n = len(problems)
-    if envelope_cap_gb is not None:
-        cap = envelope_cap_chunk(problems, round_to=round_to, n_devices=n_dev, cap_gb=envelope_cap_gb)
-        if chunk_size is None or cap < chunk_size:
-            if cap < n:
-                logger.info(
-                    "solve_fleet: envelope cap %.3g GB/device limits this (V, A) tier to chunks "
-                    "of B=%d (was %s)", envelope_cap_gb, cap, chunk_size,
-                )
-            chunk_size = cap
-    if mesh is not None and chunk_size is not None and chunk_size % n_dev:
-        # Round the chunk itself, so every chunk (not just the tail) runs at
-        # a rank multiple.
-        chunk_size = -(-chunk_size // n_dev) * n_dev
-
-    warm = None
-    if warm_start is not None:
-        if chunk_size is not None and n > chunk_size:
+    with sync_span("solve_fleet.call", batch=len(problems)):
+        if validate:
+            with span("solve_fleet.validate", instances=len(problems)):
+                _validate_problems(problems)
+        if warm_active is not None and warm_start is None:
+            raise ValueError("warm_active requires warm_start")
+        if warm_start is not None and method == "CongUnaware":
             raise ValueError(
-                f"warm_start is single-chunk only: fleet of {n} instances would split into "
-                f"chunks of {chunk_size} — raise chunk_size/envelope_cap_gb or re-solve cold"
+                "warm_start is meaningless for CongUnaware (a zero-iteration baseline that never "
+                "runs the engine)"
             )
-        warm = (warm_start, warm_active)
-
-    def solve_and_gather() -> FleetResult:
-        chunk_kw = dict(round_to=round_to, mesh=mesh, solve_kw=solve_kw)
-        if chunk_size is None or n <= chunk_size:
-            outs = [_run_chunk(problems, envelope=None, hop_bound=None, n_parts=None, batch_to=None,
-                               warm=warm, **chunk_kw)]
-        else:
-            # One global envelope, hop bound and partition envelope: every
-            # chunk runs at the same shape.
-            envelope = fleet_envelope(problems, round_to=round_to)
-            hop_bound = unify_hop_bound(problems)
-            part_env = fleet_part_envelope(problems)
-            outs = [
-                _run_chunk(problems[i:i + chunk_size], envelope=envelope, hop_bound=hop_bound,
-                           n_parts=part_env, batch_to=chunk_size, **chunk_kw)
-                for i in range(0, n, chunk_size)
-            ]
-
-        plan = ShardPlan(
-            requested=shard, n_devices=n_dev, batch=n,
-            padded_batch=sum(lanes for (_, _, _, lanes, _) in outs), reason=reason,
-            output_sharded=mesh is not None and all(ok for (*_, ok) in outs),
+        if keep_state and method == "CongUnaware":
+            raise ValueError("keep_state is unsupported for CongUnaware")
+        dev = solve_device(problems[0].device, device) if problems else torch.device(device)
+        mesh, n_dev, reason = _plan_mesh(shard, devices, dev)
+        if lane_chunk and mesh is not None:
+            raise ValueError(
+                f"lane_chunk={lane_chunk} is incompatible with a fleet mesh: every rank must run the "
+                "fused batch, whose round loop exits on one flag over the mesh — use lane_chunk=0 "
+                "(or leave it None) when shard=True"
+            )
+        solve_kw = dict(
+            method=method, m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
+            solver=solver, trace=trace, keep_state=keep_state, block_apps=block_apps,
+            lane_chunk=lane_chunk or 0, device=device,
         )
+        n = len(problems)
+        if envelope_cap_gb is not None:
+            cap = envelope_cap_chunk(problems, round_to=round_to, n_devices=n_dev,
+                                     cap_gb=envelope_cap_gb)
+            if chunk_size is None or cap < chunk_size:
+                if cap < n:
+                    logger.info(
+                        "solve_fleet: envelope cap %.3g GB/device limits this (V, A) tier to chunks "
+                        "of B=%d (was %s)", envelope_cap_gb, cap, chunk_size,
+                    )
+                chunk_size = cap
+        if mesh is not None and chunk_size is not None and chunk_size % n_dev:
+            # Round the chunk itself, so every chunk (not just the tail) runs at
+            # a rank multiple.
+            chunk_size = -(-chunk_size // n_dev) * n_dev
 
-        with span("solve_fleet.gather", chunks=len(outs)):
-            def gather(get):
-                parts_ = [_host(get(o, i))[:k] for (o, i, k, _, _) in outs]
-                return parts_[0].copy() if len(parts_) == 1 else np.concatenate(parts_)
-
-            def field(name):
-                return gather(lambda o, i: o[name])
-
-            fleet_trace = None
-            if all(o.get("trace") is not None for (o, *_) in outs):
-                fleet_trace = FleetTrace(**{
-                    k: gather(lambda o, i, k=k: getattr(o["trace"], k))
-                    for k in ("J_comm", "J_comp", "moves", "live", "best_round")
-                })
-            kept_state = None
-            if keep_state:
-                # Pad lanes trimmed per chunk; stays on the device (the next
-                # solve's warm start, not a host export), whole on every rank.
-                states = [State(x=_full(o["state"].x)[:k], phi=_full(o["state"].phi)[:k])
-                          for (o, _, k, _, _) in outs]
-                kept_state = states[0] if len(states) == 1 else State(
-                    x=torch.cat([s.x for s in states]), phi=torch.cat([s.phi for s in states])
+        warm = None
+        if warm_start is not None:
+            if chunk_size is not None and n > chunk_size:
+                raise ValueError(
+                    f"warm_start is single-chunk only: fleet of {n} instances would split into "
+                    f"chunks of {chunk_size} — raise chunk_size/envelope_cap_gb or re-solve cold"
                 )
-            return FleetResult(
-                method=method,
-                J=field("J"),
-                J_comm=field("J_comm"),
-                J_comp=field("J_comp"),
-                history=field("history"),
-                iters=field("iters"),
-                rounds=max(int(o["rounds"]) for (o, *_) in outs),
-                hosts=field("hosts").astype(np.int32),
-                parts=field("parts").astype(np.int32),
-                node_mask=gather(lambda o, i: i.node_mask),
-                app_mask=gather(lambda o, i: i.app_mask),
-                shard=plan,
-                m_max=0 if method == "CongUnaware" else 1 if method == "OneShot" else m_max,
-                trace=fleet_trace,
-                state=kept_state,
+            warm = (warm_start, warm_active)
+
+        def solve_and_gather() -> FleetResult:
+            chunk_kw = dict(round_to=round_to, mesh=mesh, solve_kw=solve_kw)
+            if chunk_size is None or n <= chunk_size:
+                outs = [_run_chunk(problems, envelope=None, hop_bound=None, n_parts=None, batch_to=None,
+                                   warm=warm, **chunk_kw)]
+            else:
+                # One global envelope, hop bound and partition envelope: every
+                # chunk runs at the same shape.
+                envelope = fleet_envelope(problems, round_to=round_to)
+                hop_bound = unify_hop_bound(problems)
+                part_env = fleet_part_envelope(problems)
+                outs = [
+                    _run_chunk(problems[i:i + chunk_size], envelope=envelope, hop_bound=hop_bound,
+                               n_parts=part_env, batch_to=chunk_size, **chunk_kw)
+                    for i in range(0, n, chunk_size)
+                ]
+
+            plan = ShardPlan(
+                requested=shard, n_devices=n_dev, batch=n,
+                padded_batch=sum(lanes for (_, _, _, lanes, _) in outs), reason=reason,
+                output_sharded=mesh is not None and all(ok for (*_, ok) in outs),
             )
 
-    world = dist.get_world_size() if shard and dist.is_initialized() else 1
-    if n_dev == world:
-        result = solve_and_gather()
-    else:
-        # Fewer ranks solve than the world holds (devices=N): the ranks past
-        # the first N hold no lanes and take rank 0's result.
-        box = [solve_and_gather() if dist.get_rank() < n_dev else None]
-        dist.broadcast_object_list(box, src=0)
-        result = box[0]
-        if result.state is not None:
-            result.state = State(x=result.state.x.to(dev), phi=result.state.phi.to(dev))
+            with span("solve_fleet.gather", chunks=len(outs)):
+                reads = 0  # copies to the host, counted as host syncs at once
 
-    n_chunks = 1 if chunk_size is None or n <= chunk_size else -(-n // chunk_size)
-    plan = result.shard
-    obs_registry.counter("fleet.chunks_executed").inc(n_chunks)
-    obs_registry.gauge("fleet.rounds_executed").set(result.rounds)
-    obs_registry.gauge("fleet.m_max").set(result.m_max)
-    obs_registry.gauge("fleet.early_exit_saved_rounds").set(max(0, result.m_max - result.rounds))
-    obs_registry.gauge("fleet.pad_overhead_fraction").set(
-        0.0 if plan.padded_batch == 0 else (plan.padded_batch - plan.batch) / plan.padded_batch
-    )
-    return result
+                def gather(get):
+                    nonlocal reads
+                    parts_ = [_host(get(o, i))[:k] for (o, i, k, _, _) in outs]
+                    reads += len(parts_)
+                    return parts_[0].copy() if len(parts_) == 1 else np.concatenate(parts_)
+
+                def field(name):
+                    return gather(lambda o, i: o[name])
+
+                fleet_trace = None
+                if all(o.get("trace") is not None for (o, *_) in outs):
+                    fleet_trace = FleetTrace(**{
+                        k: gather(lambda o, i, k=k: getattr(o["trace"], k))
+                        for k in ("J_comm", "J_comp", "moves", "live", "best_round")
+                    })
+                kept_state = None
+                if keep_state:
+                    # Pad lanes trimmed per chunk; stays on the device (the next
+                    # solve's warm start, not a host export), whole on every rank.
+                    states = [State(x=_full(o["state"].x)[:k], phi=_full(o["state"].phi)[:k])
+                              for (o, _, k, _, _) in outs]
+                    kept_state = states[0] if len(states) == 1 else State(
+                        x=torch.cat([s.x for s in states]), phi=torch.cat([s.phi for s in states])
+                    )
+                result = FleetResult(
+                    method=method,
+                    J=field("J"),
+                    J_comm=field("J_comm"),
+                    J_comp=field("J_comp"),
+                    history=field("history"),
+                    iters=field("iters"),
+                    rounds=max(int(o["rounds"]) for (o, *_) in outs),
+                    hosts=field("hosts").astype(np.int32),
+                    parts=field("parts").astype(np.int32),
+                    node_mask=gather(lambda o, i: i.node_mask),
+                    app_mask=gather(lambda o, i: i.app_mask),
+                    shard=plan,
+                    m_max=0 if method == "CongUnaware" else 1 if method == "OneShot" else m_max,
+                    trace=fleet_trace,
+                    state=kept_state,
+                )
+                count_syncs(reads)
+                return result
+
+        world = dist.get_world_size() if shard and dist.is_initialized() else 1
+        if n_dev == world:
+            result = solve_and_gather()
+        else:
+            # Fewer ranks solve than the world holds (devices=N): the ranks past
+            # the first N hold no lanes and take rank 0's result.
+            box = [solve_and_gather() if dist.get_rank() < n_dev else None]
+            dist.broadcast_object_list(box, src=0)
+            result = box[0]
+            if result.state is not None:
+                result.state = State(x=result.state.x.to(dev), phi=result.state.phi.to(dev))
+
+        n_chunks = 1 if chunk_size is None or n <= chunk_size else -(-n // chunk_size)
+        plan = result.shard
+        obs_registry.counter("fleet.chunks_executed").inc(n_chunks)
+        obs_registry.gauge("fleet.rounds_executed").set(result.rounds)
+        obs_registry.gauge("fleet.m_max").set(result.m_max)
+        obs_registry.gauge("fleet.early_exit_saved_rounds").set(max(0, result.m_max - result.rounds))
+        obs_registry.gauge("fleet.pad_overhead_fraction").set(
+            0.0 if plan.padded_batch == 0 else (plan.padded_batch - plan.batch) / plan.padded_batch
+        )
+        return result
 
 
 def solve_sequential(problems, *, method: str = "ALT", device: str | torch.device = "cuda", **kw) -> list:

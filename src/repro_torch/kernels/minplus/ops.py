@@ -9,9 +9,9 @@ cannot fill the card, chosen from the shape by `_argmin_split`.
 
 APSP is the tropical-squaring closure on both devices (the JAX package's
 `use_pallas` algorithm): d <- min(d, d (x) d) until the batch stops
-changing, one host read of `any(changed)` per sweep. Lanes that closed
-early take extra sweeps that are bitwise no-ops, as under a vmapped
-while_loop.
+changing, one host read of `any(changed)` per sweep (counted by
+`obs.sync.read_flag`). Lanes that closed early take extra sweeps that are
+bitwise no-ops, as under a vmapped while_loop.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ...obs.sync import read_flag
 from .. import _build
 from .ref import minplus_matmul_argmin_blocked, minplus_matmul_blocked
 
@@ -144,7 +145,7 @@ def minplus_closure(
     d = d.contiguous()
     for _ in range(sweeps):
         nxt = torch.minimum(d, minplus_matmul(d, d))
-        changed = early_exit and bool((nxt != d).any())
+        changed = early_exit and read_flag((nxt != d).any(), "minplus.closure")
         d = nxt
         if early_exit and not changed:
             break

@@ -7,7 +7,9 @@ tracer records (name, ts, dur, attrs, parent) events that serialize to
   * JSONL — one event per line with schema ``{ts, name, dur, attrs}`` plus
     the structural fields ``{id, parent, tid, depth}``, and
   * Chrome ``trace_event`` JSON (``"ph": "X"`` complete events, microsecond
-    timestamps) loadable in Perfetto or chrome://tracing.
+    timestamps on the Unix-epoch clock torch.profiler's events use, so a
+    span file and a profiler trace of the same run share one timeline)
+    loadable in Perfetto or chrome://tracing.
 
 Tracing is off by default and costs a single attribute read per span when
 disabled. Enable programmatically (`configure(enabled=True, jsonl_path=...)`)
@@ -22,6 +24,10 @@ range, so host spans line up with device kernels inside a
 `torch.profiler` capture (the JAX package did this with
 `jax.profiler.TraceAnnotation` behind a second variable; here the range
 costs about a microsecond and needs no switch of its own).
+
+`with span(...) as attrs:` hands the body the span's attribute dict (None
+while tracing is off), so a body can record what it only knows at its end,
+such as the host syncs it made (`obs/sync.py`).
 
 Spans nest through a thread-local stack, so concurrent threads trace
 independently. Events are recorded at span *exit* (a parent's duration is
@@ -67,13 +73,14 @@ class SpanEvent:
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
 
-    def to_chrome(self) -> dict:
-        """Chrome trace_event "complete" event (microsecond clock)."""
+    def to_chrome(self, epoch_us: float) -> dict:
+        """Chrome trace_event "complete" event (microsecond clock, offset by
+        the tracer epoch `epoch_us`)."""
         return {
             "name": self.name,
             "cat": "repro",
             "ph": "X",
-            "ts": self.ts * 1e6,
+            "ts": epoch_us + self.ts * 1e6,
             "dur": self.dur * 1e6,
             "pid": os.getpid(),
             "tid": self.tid,
@@ -92,6 +99,8 @@ class Tracer:
         self._local = threading.local()
         self._events: list[SpanEvent] = []
         self._epoch = time.perf_counter()
+        # The same instant in Unix-epoch nanoseconds: torch.profiler's clock.
+        self._epoch_unix_ns = time.time_ns()
         self._next_id = 0
         self.enabled = False
         self.jsonl_path: str | None = None
@@ -109,9 +118,11 @@ class Tracer:
         """Trace one host-side phase; a no-op unless the tracer is enabled.
 
         Keyword attributes must be JSON-serializable (they land in the
-        JSONL `attrs` object and the Chrome `args` object verbatim)."""
+        JSONL `attrs` object and the Chrome `args` object verbatim). The
+        body receives the attribute dict, and keys it adds before the span
+        closes are recorded with it; while disabled it receives None."""
         if not self.enabled:
-            yield
+            yield None
             return
         stack = self._stack()
         with self._lock:
@@ -123,7 +134,7 @@ class Tracer:
         t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(name):
-                yield
+                yield attrs
         finally:
             t1 = time.perf_counter()
             stack.pop()
@@ -174,7 +185,7 @@ class Tracer:
         path = pathlib.Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         payload = {
-            "traceEvents": [ev.to_chrome() for ev in self.events()],
+            "traceEvents": [ev.to_chrome(self._epoch_unix_ns / 1e3) for ev in self.events()],
             "displayTimeUnit": "ms",
         }
         path.write_text(json.dumps(payload))

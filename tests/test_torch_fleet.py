@@ -342,3 +342,75 @@ def test_cli_json_keys_match_jax(capsys):
     np.testing.assert_allclose([r["J"] for r in got["per_instance"]],
                                [r["J"] for r in want["per_instance"]], rtol=1e-5)
     assert got["use_pallas"] is False and got["interpret"] is False
+
+
+# ---------------------------------------------------------------------------
+# Spans and the host-sync count (obs/sync.py)
+# ---------------------------------------------------------------------------
+def _traced_solve(problems, **kw):
+    """`solve_fleet` with tracing on: (result, spans, host syncs counted)."""
+    from repro_torch.obs import sync, trace
+
+    trace.configure(enabled=True)
+    trace.reset()
+    first = sync.host_syncs()
+    try:
+        res = TF.solve_fleet(problems, device="cpu", **kw)
+        return res, trace.TRACER.events(), sync.host_syncs() - first
+    finally:
+        trace.configure(enabled=False)
+        trace.reset()
+
+
+def test_tracing_changes_no_bit_and_untraced_counts(fleets):
+    """With tracing on and off: J, hosts, x and phi bitwise equal; off,
+    nothing is recorded and the counter still counts every sync."""
+    from repro_torch.obs import sync, trace
+
+    _, tf = fleets
+    kw = dict(SOLVE_KW, keep_state=True)
+    on, spans, counted = _traced_solve(tf[:3], **kw)
+    first = sync.host_syncs()
+    off = TF.solve_fleet(tf[:3], device="cpu", **kw)
+    assert trace.TRACER.events() == [] and not trace.tracer_enabled()
+    assert sync.host_syncs() - first == counted > 0
+    for k in ("J", "J_comm", "J_comp", "hosts", "history", "iters"):
+        assert np.array_equal(getattr(on, k), getattr(off, k), equal_nan=True), k
+    assert torch.equal(on.state.x, off.state.x) and torch.equal(on.state.phi, off.state.phi)
+    call = [e for e in spans if e.name == "solve_fleet.call"]
+    assert len(call) == 1 and call[0].attrs["host_syncs"] == counted
+
+
+def test_host_syncs_are_the_reads_at_their_sites(fleets, monkeypatch):
+    """Each round's `host_syncs` is its min-plus closure's early-exit tests
+    plus the exit-flag read that ends it; the call's adds eight copies a
+    validated instance, the stack's three cost scalars copied to the
+    device, the closure and exit flag before the first round and the
+    gather's copies. Counted here at the sites themselves."""
+    from repro_torch.core import engine
+    from repro_torch.kernels.minplus import ops as mp_ops
+
+    _, tf = fleets
+    events = []
+
+    def tap(name, fn):
+        def wrapped(*a, **k):
+            events.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(mp_ops, "minplus_matmul", tap("test", mp_ops.minplus_matmul))
+    monkeypatch.setattr(engine, "_any_active", tap("flag", engine._any_active))
+    monkeypatch.setattr(engine, "round_step", tap("round", engine.round_step))
+    monkeypatch.setattr(torch.Tensor, "cpu", tap("copy", torch.Tensor.cpu))
+    monkeypatch.setattr(torch, "tensor", tap("scalar", torch.tensor))
+    res, spans, counted = _traced_solve(tf[:3], **SOLVE_KW)
+    segments = " ".join(events).split("round")
+    assert len(segments) == res.rounds + 1
+    assert segments[0].split().count("copy") == 8 * 3  # the validation, before any product
+    assert segments[0].split().count("scalar") == 3
+    rounds = sorted((e for e in spans if e.name == "solve_fleet.round"), key=lambda e: e.attrs["m"])
+    for r, seg in zip(rounds, segments[1:]):
+        assert r.attrs["host_syncs"] == seg.split().count("test") + seg.split().count("flag")
+    call = next(e for e in spans if e.name == "solve_fleet.call")
+    assert call.attrs["host_syncs"] == counted == len(events) - res.rounds

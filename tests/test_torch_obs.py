@@ -83,32 +83,82 @@ def test_enabled_spans_are_profiler_ranges():
     assert "serve.prefill" in {e.key for e in prof.key_averages()}
 
 
-def test_profile_round_phases_matches_jax_keys_and_spans(tmp_path):
-    """The round-phase profile on two iot instances on the CPU: JAX's keys
-    and batch / t_phi / block_apps, finite times, shares summing to 1, and
-    the four spans nested as JAX's, passing the JAX package's validator."""
-    from repro.core import scenarios as j_scenarios
-    from repro.obs import profile_round_phases as j_profile
-    from repro_torch.core import scenarios as t_scenarios
-    from repro_torch.obs import profile_round_phases
+def test_span_hands_its_body_the_attrs():
+    """A body adds attributes it knows only at its end; a disabled tracer
+    hands it None and records nothing."""
+    tr = t_trace.Tracer()
+    with tr.span("solve_fleet.round", m=1) as attrs:
+        assert attrs is None
+    tr.configure(enabled=True)
+    with tr.span("solve_fleet.round", m=1) as attrs:
+        attrs["host_syncs"] = 3
+    assert [e.attrs for e in tr.events()] == [{"m": 1, "host_syncs": 3}]
 
-    want = j_profile([j_scenarios.iot(), j_scenarios.iot()], t_phi=2, reps=1)
+
+def test_chrome_spans_share_the_profilers_clock(tmp_path):
+    """The Chrome file's span starts and ends lie on torch.profiler's clock
+    (Unix-epoch nanoseconds): within 1 ms of the span's own range in a CPU
+    capture. The JSONL keeps seconds from the tracer's epoch."""
+    tr = t_trace.Tracer()
+    tr.configure(enabled=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tr.span("solve_fleet.call", batch=1):
+            torch.ones(64).cumsum(0)
+            with tr.span("solve_fleet.round", m=1):
+                torch.ones(64).sum()
+    tr.write_chrome_trace(tmp_path / "t.trace.json")
+    chrome = {e["name"]: e for e in json.loads((tmp_path / "t.trace.json").read_text())["traceEvents"]}
+    ranges = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events() if e.name() in chrome}
+    assert ranges.keys() == chrome.keys()
+    for name, (start_ns, end_ns) in ranges.items():
+        ev = chrome[name]
+        assert abs(ev["ts"] - start_ns / 1e3) < 1e3 and abs(ev["ts"] + ev["dur"] - end_ns / 1e3) < 1e3
+    assert all(0 <= e.ts < 60 for e in tr.events())
+
+
+def test_solve_fleet_spans_nest_round_by_round(tmp_path):
+    """One traced `solve_fleet` on two iot instances: one `solve_fleet.call`
+    root; one `solve_fleet.round` a round (m = 1..rounds) inside
+    `solve_fleet.execute`, each holding exactly the placement, forwarding
+    and eval spans in that order (besides its `device.sync` reads); every
+    span once per call but for the reads; the trace passes both
+    validators."""
+    from repro_torch.core import scenarios as t_scenarios
+    from repro_torch.fleet import solve_fleet
+    from repro_torch.obs.validate import validate_events
+
+    problems = [t_scenarios.iot(device="cpu")] * 2
     t_trace.configure(enabled=True)
     t_trace.reset()
     try:
-        got = profile_round_phases([t_scenarios.iot(device="cpu")] * 2, t_phi=2, reps=2, device="cpu")
+        res = solve_fleet(problems, m_max=3, t_phi=2, device="cpu")
         events = t_trace.TRACER.events()
-        t_trace.TRACER.write_jsonl(tmp_path / "phases.jsonl")
+        t_trace.TRACER.write_jsonl(tmp_path / "spans.jsonl")
     finally:
         t_trace.configure(enabled=False)
         t_trace.reset()
-    assert list(got) == list(want)
-    assert {k: got[k] for k in ("batch", "t_phi", "block_apps")} == {"batch": 2, "t_phi": 2, "block_apps": 1}
-    assert all(np.isfinite(v) and v >= 0 for v in got.values())
-    assert abs(sum(got[f"{k}_share"] for k in ("placement", "forwarding", "round_eval")) - 1) < 1e-3
-    by_name = {e.name: e for e in events}
-    assert set(by_name) == {"round.phases", "round.placement", "round.forwarding", "round.round_eval"}
-    assert all(by_name[n].parent == by_name["round.phases"].id for n in by_name if n != "round.phases")
-    assert by_name["round.forwarding"].attrs == {"t_phi": 2}
-    _, errors = validate_lines((tmp_path / "phases.jsonl").read_text().splitlines())
-    assert errors == []
+    by_id = {e.id: e for e in events}
+    roots = [e for e in events if e.parent == -1]
+    assert [e.name for e in roots] == ["solve_fleet.call"] and roots[0].attrs["batch"] == 2
+    children = {}
+    for e in sorted(events, key=lambda e: e.ts):
+        if e.name != "device.sync":
+            children.setdefault(e.parent, []).append(e)
+    assert [e.name for e in children[roots[0].id]] == [
+        "solve_fleet.validate", "solve_fleet.stack", "solve_fleet.execute", "solve_fleet.gather"]
+    execute = children[roots[0].id][2]
+    rounds = children[execute.id]
+    assert res.rounds >= 2 and [e.attrs["m"] for e in rounds] == list(range(1, res.rounds + 1))
+    assert {e.name for e in rounds} == {"solve_fleet.round"}
+    for r in rounds:
+        assert [e.name for e in children[r.id]] == [
+            "solve_fleet.round.placement", "solve_fleet.round.forwarding", "solve_fleet.round.eval"]
+        assert children[r.id][1].attrs == {"t_phi": 2} and r.attrs["host_syncs"] >= 1
+    syncs = [e for e in events if e.name == "device.sync"]
+    assert {e.attrs["site"] for e in syncs} == {"engine.exit_flag", "minplus.closure"}
+    assert all(by_id[e.parent].name.startswith("solve_fleet.") for e in syncs)
+    lines = (tmp_path / "spans.jsonl").read_text().splitlines()
+    records, errors = validate_lines(lines)
+    assert errors == [] and len(records) == len(events)
+    assert validate_events(records) == []

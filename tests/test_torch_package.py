@@ -32,7 +32,6 @@ from repro_torch.launch import fleet as fleet_cli
 from repro_torch.launch import pareto as pareto_cli
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_params, quantize_params
-from repro_torch.obs import profile_round_phases
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.partition import apps_from_profiles, profile_arch, run_partition, split_params, sweep_zoo
 
@@ -195,8 +194,7 @@ def test_constructors_and_solvers_default_to_cuda(monkeypatch):
 
 def test_model_entry_points_default_to_cuda(monkeypatch):
     """The serve path's entry points, called without device=, raise too:
-    for every family, the encoder through the executor, int8 trees and the
-    round-phase profiler."""
+    for every family, the encoder through the executor and int8 trees."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config("qwen1.5-0.5b")
     model = init_params(cfg, 0, device="cpu")
@@ -222,7 +220,6 @@ def test_model_entry_points_default_to_cuda(monkeypatch):
         lambda: init_params(dataclasses.replace(cfg, quantize_int8=True)),
         lambda: params_from_jax(cfg, int8_tree),
         lambda: serve.main(["--arch", "mamba2-370m", "--reduced", "--requests", "1"]),
-        lambda: profile_round_phases([scenarios.iot(device="cpu")], t_phi=1),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
