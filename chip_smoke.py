@@ -608,6 +608,36 @@ def phase1(scen, build, stacked256, fleet_problems, pareto_chunk, warm_mm):
              False)
         del a_, b_, got, want
     torch.cuda.empty_cache()
+
+    # The sequential placement sweep: the kernel against the plain scan on
+    # the same CUDA tensors, hosts bitwise, at the refined state of the
+    # batched V = 256 shape (the headline) and of one V = 64 instance.
+    from repro_torch.core import round_eval
+    from repro_torch.core.placement import comp_marginal
+    from repro_torch.kernels.minplus import apsp_with_nexthop
+    from repro_torch.kernels.placement import ops as pl_ops, ref as pl_ref
+
+    for prob, headline in ((stacked256, True), (rc64, False)):
+        state = forwarding_update(prob, structured_init(prob), t_phi=2)
+        ctg = round_eval(prob, state)[1]["ctg"]
+        args = (prob, state.hosts(), apsp_with_nexthop(ctg[1])[0], ctg[5], comp_marginal(prob))
+        for colocate in (False, True):
+            kw = dict(colocate=colocate, move_margin=0.02)
+            got, want = pl_ops.placement_sweep(*args, **kw), pl_ref.sequential_sweep(*args, **kw)
+            if not torch.equal(got, want):
+                raise AssertionError(f"placement_sweep colocate={colocate}: {int((got != want).sum())} hosts differ")
+            nb, na, np_ = got.shape
+            v = prob.net.n_nodes
+            steps = na if colocate else na * np_
+            keep("placement_sweep", {
+                "kernel": "placement_sweep", "shape": f"B={nb} V={v} A={na} P={np_}{' colocated' if colocate else ''}",
+                "variant": "", "max_abs_err": 0.0,
+                "ms": cuda_ms(lambda: pl_ops.placement_sweep(*args, **kw), 20),
+                "plain_ms": cuda_ms(lambda: pl_ref.sequential_sweep(*args, **kw), 2, 1),
+                **bound(nb * steps * 2 * v * 4, 0), "library_ms": None,
+            }, headline and not colocate)
+        del state, ctg, args, got, want
+    torch.cuda.empty_cache()
     build.reset_launches()
     emit({"phase": 1, "name": "kernels_vs_plain", "rows": rows})
     return summary
@@ -3564,6 +3594,7 @@ def run_phases(torch, matrix) -> int:
     sources = {
         "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",
         "flash": "src/repro_torch/csrc/flash_attention.cu",
+        "placement": "src/repro_torch/csrc/placement.cu",
     }
     replaces = {
         "neumann_cols": "src/repro/kernels/neumann/kernel.py:52",
@@ -3571,6 +3602,7 @@ def run_phases(torch, matrix) -> int:
         "minplus": "src/repro/kernels/minplus/kernel.py:36",
         "minplus_argmin": "src/repro/kernels/minplus/kernel.py:61",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:39",
+        "placement_sweep": "no Pallas kernel: src/repro/core/placement.py:103, a lax.scan over apps",
     }
     kernels = []
     for name, launches in counter.total.items():

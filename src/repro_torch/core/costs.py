@@ -28,12 +28,19 @@ def _mm1(load, cap, rho_max):
     return torch.where(load <= knee, base, ext)
 
 
-def _mm1_prime(load, cap, rho_max):
+def mm1_prime_terms(cap, rho_max):
+    """The load-independent terms (cap, knee, s, c) of `_mm1_prime`: the
+    clamped rate, the knee, and the quadratic tail's slope and curvature."""
     cap = torch.clamp_min(cap, 1e-9)
     knee = bview(rho_max, cap.ndim) * cap
     gap = cap - knee
     s = cap / (gap * gap)
     c = 2.0 * cap / (gap * gap * gap)
+    return cap, knee, s, c
+
+
+def _mm1_prime(load, cap, rho_max):
+    cap, knee, s, c = mm1_prime_terms(cap, rho_max)
     safe = torch.minimum(load, knee)
     base = cap / torch.square(cap - safe)
     ext = s + c * (load - knee)

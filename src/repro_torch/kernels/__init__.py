@@ -8,6 +8,9 @@
            streaming-softmax attention (GQA, causal, sliding window) of the
            model substrate's prefill and forward (csrc/flash_attention.cu);
            its gradient is the plain backward (ops.flash_attention_backward)
+  placement
+           the sequential placement sweep, one CTA a lane walking its apps
+           and partitions in order (csrc/placement.cu)
 
 Each package ships ops.py (wrapper: CUDA tensor -> kernel, CPU tensor ->
 plain version) and ref.py (the plain PyTorch versions). `_build` compiles

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("neumann", "minplus", "flash_attention")
+SOURCES = ("neumann", "minplus", "flash_attention", "placement")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 # resets and reads these).
 LAUNCHES = {
     "neumann_cols": 0, "neumann_rows": 0, "minplus": 0, "minplus_argmin": 0,
-    "flash_attention": 0,
+    "flash_attention": 0, "placement_sweep": 0,
 }
 VARIANT_LAUNCHES: dict[str, dict[str, int]] = {
     "neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {},

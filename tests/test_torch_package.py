@@ -23,6 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
+from repro_torch.kernels.placement import ops as pl_ops
 from repro_torch import chaos
 from repro_torch.distributed import pipeline_apply
 from repro_torch.examples import edge_serving, quickstart
@@ -361,6 +362,40 @@ def test_kernel_wrappers_validate_variant_rules(monkeypatch):
                                  hops=3, transpose=True)
 
 
+def test_placement_sweep_wrapper_raises_instead_of_plain_on_cuda(monkeypatch):
+    """A CUDA problem reaches the sweep kernel's launch (which raises
+    without a card) and never the plain scan; shapes it cannot take raise
+    first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pl_ops, "sequential_sweep", _no_plain)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    problem = fleet.stack_problems([scenarios.iot(device="cpu")])[0]
+    b, a, p, v = 1, problem.apps.n_apps, problem.apps.n_parts, problem.net.n_nodes
+    hosts = _FakeCuda(torch.zeros(b, a, p, dtype=torch.int64))
+    dist, G = _FakeCuda(torch.zeros(b, v, v)), _FakeCuda(torch.zeros(b, v))
+    kw = dict(colocate=False, move_margin=0.02)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        pl_ops.placement_sweep(problem, hosts, dist, G, None, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        pl_ops.placement_sweep(problem, hosts, _FakeCuda(torch.zeros(b, v, v, dtype=torch.float64)), G, None, **kw)
+    with pytest.raises(ValueError, match="dist"):
+        pl_ops.placement_sweep(problem, hosts, _FakeCuda(torch.zeros(b, v, v + 1)), G, None, **kw)
+
+
+@pytest.mark.parametrize("n, shape", [
+    (1, (32, 1)), (12, (32, 1)), (64, (64, 1)), (65, (96, 1)), (256, (256, 1)), (1024, (1024, 1)),
+    (1025, (1024, 2)), (3000, (1024, 4)), (8192, (1024, 8)),
+])
+def test_placement_sweep_geometry(n, shape):
+    """Threads a CTA are the lane's nodes in whole warps up to 1,024, then
+    each thread owns 2, 4 or 8 nodes; past 8,192 nodes the wrapper raises."""
+    assert pl_ops._geometry(n) == shape
+    threads, npt = shape
+    assert threads % 32 == 0 and threads * npt >= n and (npt == 1 or threads == 1024)
+    with pytest.raises(ValueError, match="exceed"):
+        pl_ops._geometry(8193)
+
+
 def test_launch_counts_by_variant(monkeypatch):
     empty = {"neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {}}
     assert _build.VARIANT_LAUNCHES.keys() == empty.keys()
@@ -410,7 +445,7 @@ def test_argmin_wrapper_checks_its_split(monkeypatch):
 def test_build_key_tracks_sources():
     """Each CUDA source builds into its own hashed library under build/kernels."""
     paths = {n: _build._lib_path(n) for n in _build.SOURCES}
-    assert set(paths) == {"neumann", "minplus", "flash_attention"}
+    assert set(paths) == {"neumann", "minplus", "flash_attention", "placement"}
     for n, p in paths.items():
         assert p.parent == ROOT / "build" / "kernels" and p.name.startswith(n + "-")
         assert (PORT / "csrc" / f"{n}.cu").exists()

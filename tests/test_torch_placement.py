@@ -1,7 +1,9 @@
-"""The port's blocked placement sweep, `repair_placement` and the engine's
-round trace, on the CPU: the blocked sweep against the port's sequential
-scan (bitwise, every block size) and against the JAX package's sweep, the
-certificates, failure repair against JAX's, and the trace against JAX's."""
+"""The port's placement sweeps, `repair_placement` and the engine's round
+trace, on the CPU: the sequential sweep's dispatch (CPU tensors run the
+plain scan) and the plain scan against the JAX package's, the blocked sweep
+against the port's sequential scan (bitwise, every block size) and against
+the JAX package's sweep, the certificates, failure repair against JAX's,
+and the trace against JAX's."""
 import dataclasses
 
 import jax
@@ -19,7 +21,10 @@ from repro_torch import core as T
 from repro_torch.core import _graphs
 from repro_torch.core import placement as t_placement
 from repro_torch.fleet import NU_PAD, stack_problems
+from repro_torch.kernels import _build
 from repro_torch.kernels.minplus import apsp_with_nexthop
+from repro_torch.kernels.placement import ops as sweep_ops
+from repro_torch.kernels.placement import ref as sweep_ref
 
 jax.config.update("jax_enable_x64", False)
 
@@ -41,6 +46,47 @@ def sweep_inputs():
             _, aux = T.round_eval(st, s0)
             out[name, colocate] = (jp, st, s0, aux["ctg"])
     return out
+
+
+def _sweep_operands(st, s0, ctg):
+    """(hosts, dist, G, cprime) as `placement_update` hands them to a sweep."""
+    dist, _ = apsp_with_nexthop(ctg[1])
+    return s0.hosts(), dist, ctg[5], t_placement.comp_marginal(st)
+
+
+@pytest.mark.parametrize("colocate", [False, True], ids=["chain", "colocated"])
+@pytest.mark.parametrize("name", NAMES)
+def test_sweep_dispatch_runs_plain_on_cpu(sweep_inputs, name, colocate, monkeypatch):
+    """On CPU tensors `ops.placement_sweep` is `ref.sequential_sweep`,
+    bitwise, and launches no kernel; `placement_update` at block_apps 1
+    commits its hosts."""
+    _, st, s0, ctg = sweep_inputs[name, colocate]
+    hosts, dist, G, cprime = _sweep_operands(st, s0, ctg)
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    kw = dict(colocate=colocate, move_margin=MOVE_MARGIN)
+    got = sweep_ops.placement_sweep(st, hosts, dist, G, cprime, **kw)
+    want = sweep_ref.sequential_sweep(st, hosts, dist, G, cprime, **kw)
+    assert torch.equal(got, want) and not any(_build.LAUNCHES.values())
+    assert bool((want != hosts).any())
+    assert torch.equal(T.placement_update(st, s0, ctg, **kw).hosts(), want)
+
+
+@pytest.mark.parametrize("colocate", [False, True], ids=["chain", "colocated"])
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_sweep_matches_jax_scan(sweep_inputs, name, colocate):
+    """The plain sequential scan against the JAX package's scan on the same
+    state: hosts equal, or, on a placement near-tie, the swept states' J at
+    rtol 1e-5."""
+    jp, st, s0, ctg = sweep_inputs[name, colocate]
+    hosts, dist, G, cprime = _sweep_operands(st, s0, ctg)
+    got = sweep_ref.sequential_sweep(st, hosts, dist, G, cprime, colocate=colocate, move_margin=MOVE_MARGIN)
+    want = J.placement_update(jp, to_jax_state(T.engine._squeeze(s0)), colocate=colocate)
+    if not np.array_equal(got[0].numpy(), np.asarray(want.hosts())):
+        swept = T.placement_update(st, s0, ctg, colocate=colocate)
+        assert torch.equal(swept.hosts(), got)
+        j_got, _ = T.round_eval(st, swept)
+        j_want, _ = J.round_eval(jp, want)
+        np.testing.assert_allclose(float(j_got[0]), float(j_want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("colocate", [False, True], ids=["chain", "colocated"])
@@ -103,6 +149,9 @@ def test_blocked_sweep_mixed_p_fleet_bitwise():
     s0 = T.forwarding_update(st, T.structured_init(st), t_phi=2)
     _, aux = T.round_eval(st, s0)
     ref = T.placement_update(st, s0, aux["ctg"])
+    hosts, dist, G, cprime = _sweep_operands(st, s0, aux["ctg"])
+    plain = sweep_ref.sequential_sweep(st, hosts, dist, G, cprime, colocate=False, move_margin=MOVE_MARGIN)
+    assert torch.equal(ref.hosts(), plain)
     for bk in (1, 3, 0):
         got = t_placement.blocked_placement_update(st, s0, aux["ctg"], block_apps=bk)
         assert torch.equal(got.x, ref.x) and torch.equal(got.phi, ref.phi), bk
