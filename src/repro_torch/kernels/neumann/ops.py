@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ...obs.trace import span
 from .ref import neumann_propagate_ref
 
 # Extra hops past the nilpotent bound, absorbing the geometric tail of
@@ -154,8 +155,9 @@ def _batch_stride(t: torch.Tensor, n_tail: int) -> int | None:
     return stride
 
 
-def _launch(w, b, hops, tol, transpose) -> torch.Tensor:
-    """Kernel launch for CUDA tensors; validates everything it passes on."""
+def _launch(w, b, hops, tol, transpose, attrs) -> torch.Tensor:
+    """Kernel launch for CUDA tensors; validates everything it passes on and
+    names the variant it launches in `attrs` (the span's, None untraced)."""
     if w.device.type != "cuda" or b.device.type != "cuda" or w.device != b.device:
         raise ValueError(f"neumann_propagate: w on {w.device}, b on {b.device}")
     if w.dtype not in (torch.float32, torch.bfloat16) or b.dtype != torch.float32:
@@ -178,6 +180,8 @@ def _launch(w, b, hops, tol, transpose) -> torch.Tensor:
     else:
         c, resident = _rows_cluster(v, w.element_size())
         _check_launch(n, v, c, _rows_smem(v, w.element_size(), c, resident))
+    if attrs is not None:
+        attrs["variant"] = _variant(c, resident)
     fn = _build.load("neumann").neumann_propagate
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -210,10 +214,22 @@ def neumann_propagate(
     batch stride; b: [..., V] float32, contiguous.
 
     CPU tensors run `neumann_propagate_ref`; CUDA tensors launch the kernel
-    (`neumann_cols` for transpose, `neumann_rows` otherwise) or raise."""
-    if w.device.type == "cpu" and b.device.type == "cpu":
-        return neumann_propagate_ref(w, b, hops, tol, transpose)
-    return _launch(w, b, hops, tol, transpose)
+    (`neumann_cols` for transpose, `neumann_rows` otherwise) or raise.
+
+    While tracing is on each call is one `kernels.neumann` span: `variant`
+    (the launch-count name, e.g. "c8_streamed", or "plain" on the CPU path;
+    absent when there is nothing to launch), `systems` (N), `v`, `esize`
+    and `transpose`, host values alone."""
+    with span("kernels.neumann") as attrs:
+        if attrs is not None:
+            v = w.shape[-1]
+            attrs.update(systems=b.numel() // v if v else 0, v=v, esize=w.element_size(),
+                         transpose=bool(transpose))
+        if w.device.type == "cpu" and b.device.type == "cpu":
+            if attrs is not None:
+                attrs["variant"] = "plain"
+            return neumann_propagate_ref(w, b, hops, tol, transpose)
+        return _launch(w, b, hops, tol, transpose, attrs)
 
 
 def _propagate(m, b, hops, tol, operand_dtype):

@@ -227,6 +227,19 @@ def test_rows_cluster_fits(v, esize):
         assert (c, resident) == (1, True)
 
 
+@pytest.mark.parametrize("v,layout", [(64, (1, True)), (256, (4, True)), (1024, (8, False))],
+                         ids=["fleet64", "tier256", "backbone1024"])
+def test_benchmark_cells_take_their_layouts(v, layout):
+    """The fp32 layouts of the benchmark cells' V: one CTA at V 64, four
+    CTAs holding their blocks on chip at V 256, and at V 1024 eight CTAs
+    streaming W from L2 on every hop in both kernels (the rows kernel's
+    512 KB block is past a CTA's 227 KB of shared memory, the cols kernel's
+    128 rows a group past its 16 rows in registers)."""
+    assert _rows_cluster(v, 4) == layout and _cols_cluster(v) == layout
+    if v == 1024:
+        assert -(-v // 8) * v * 4 == 512 * 1024 and _cols_layout(v, 8)[3] == 128
+
+
 def _row_block_split(w, b, hops, tol, c):
     """The cluster kernel's schedule on the CPU: x_new assembled from C row
     blocks, each computed from the full previous iterate; the residual pair

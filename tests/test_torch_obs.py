@@ -121,9 +121,9 @@ def test_solve_fleet_spans_nest_round_by_round(tmp_path):
     """One traced `solve_fleet` on two iot instances: one `solve_fleet.call`
     root; one `solve_fleet.round` a round (m = 1..rounds) inside
     `solve_fleet.execute`, each holding exactly the placement, forwarding
-    and eval spans in that order (besides its `device.sync` reads); every
-    span once per call but for the reads; the trace passes both
-    validators."""
+    and eval spans in that order (besides its `device.sync` reads and its
+    `kernels.neumann` solves); every span once per call but for the reads
+    and the solves; the trace passes both validators."""
     from repro_torch.core import scenarios as t_scenarios
     from repro_torch.fleet import solve_fleet
     from repro_torch.obs.validate import validate_events
@@ -143,7 +143,7 @@ def test_solve_fleet_spans_nest_round_by_round(tmp_path):
     assert [e.name for e in roots] == ["solve_fleet.call"] and roots[0].attrs["batch"] == 2
     children = {}
     for e in sorted(events, key=lambda e: e.ts):
-        if e.name != "device.sync":
+        if e.name not in ("device.sync", "kernels.neumann"):
             children.setdefault(e.parent, []).append(e)
     assert [e.name for e in children[roots[0].id]] == [
         "solve_fleet.validate", "solve_fleet.stack", "solve_fleet.execute", "solve_fleet.gather"]
@@ -158,7 +158,40 @@ def test_solve_fleet_spans_nest_round_by_round(tmp_path):
     syncs = [e for e in events if e.name == "device.sync"]
     assert {e.attrs["site"] for e in syncs} == {"engine.exit_flag", "minplus.closure"}
     assert all(by_id[e.parent].name.startswith("solve_fleet.") for e in syncs)
+    solves = [e for e in events if e.name == "kernels.neumann"]
+    assert solves and {by_id[e.parent].name for e in solves} == {
+        "solve_fleet.execute", "solve_fleet.round.forwarding", "solve_fleet.round.eval"}
     lines = (tmp_path / "spans.jsonl").read_text().splitlines()
     records, errors = validate_lines(lines)
     assert errors == [] and len(records) == len(events)
     assert validate_events(records) == []
+
+
+def test_solve_fleet_neumann_spans_carry_the_solve(tmp_path):
+    """Every `neumann_propagate` call of a traced `solve_fleet` on the CPU
+    is one `kernels.neumann` span whose attributes are the host's view of
+    the solve: the plain path's variant, the operators solved at once (the
+    stacked lanes times the apps: one stage of phi a call), V, the operand
+    size and the kernel's orientation (the traffic scan transposed, the
+    cost-to-go not); with tracing off there is no span."""
+    from repro_torch.core import scenarios as t_scenarios
+    from repro_torch.fleet import solve_fleet
+
+    problems = [t_scenarios.iot(device="cpu")] * 2
+    t_trace.configure(enabled=True)
+    t_trace.reset()
+    try:
+        solve_fleet(problems, m_max=2, t_phi=2, device="cpu")
+        events = t_trace.TRACER.events()
+    finally:
+        t_trace.configure(enabled=False)
+        t_trace.reset()
+    solves = [e for e in events if e.name == "kernels.neumann"]
+    v, apps = problems[0].net.n_nodes, problems[0].apps.src.shape[0]
+    assert solves and {e.attrs["variant"] for e in solves} == {"plain"}
+    assert {e.attrs["v"] for e in solves} == {v} and {e.attrs["esize"] for e in solves} == {4}
+    assert {e.attrs["systems"] for e in solves} == {2 * apps}
+    assert {e.attrs["transpose"] for e in solves} == {True, False}
+    assert all(set(e.attrs) == {"variant", "systems", "v", "esize", "transpose"} for e in solves)
+    solve_fleet(problems, m_max=1, t_phi=1, device="cpu")
+    assert t_trace.TRACER.events() == []
