@@ -23,7 +23,9 @@ phases, each printing JSON lines:
      attention 1e-4 in fp32 and 2e-2 in bf16, fully masked rows exactly 0,
      also at phase 10's shapes: hymba's GQA 25:5 with its 1024 window at
      S = 2048, the seamless encoder, cross attention at Sq = 16 and 1
-     against 1024 frames, qwen2-moe's D = 128),
+     against 1024 frames, qwen2-moe's D = 128; the placement sweep's hosts
+     bitwise; the forwarding sweep's phi at the benchmark cells' shapes,
+     bitwise off the minimum-marginal column and 1e-6 + 1e-5 |phi| on it),
      with CUDA-event times, the plain version's time, a PyTorch-call
      yardstick (for Neumann the dense LU solve), and the card's bound;
      each flash row names its variant (wgmma or cuda_core), each argmin
@@ -638,9 +640,60 @@ def phase1(scen, build, stacked256, fleet_problems, pareto_chunk, warm_mm):
             }, headline and not colocate)
         del state, ctg, args, got, want
     torch.cuda.empty_cache()
+
+    # One forwarding sweep's update of phi: the kernel against the plain
+    # tail on the same CUDA tensors at the benchmark cells' shapes (fleet64,
+    # tier256 the headline, backbone1024), bitwise off the j* column and
+    # j* within 1e-6 + 1e-5 |want|; bound: phi read and written once.
+    from repro_torch.kernels.forwarding import ops as fw_ops, ref as fw_ref
+
+    for (nb, na, nk, v), headline in (((1024, 24, 3, 64), False), ((16, 128, 3, 256), True),
+                                      ((1, 256, 3, 1024), False)):
+        args = forwarding_operands(nb, na, nk, v, seed=v)
+        got, want = fw_ops.update_phi(*args), fw_ref.update_phi_ref(*args)
+        at = torch.nn.functional.one_hot(fw_ref.link_delta(*args[1:5]).argmin(dim=-1), v).bool()
+        if not torch.equal(got[~at], want[~at]):
+            raise AssertionError(f"forwarding_sweep V={v}: {int((got[~at] != want[~at]).sum())} entries off j* differ")
+        err = (got[at] - want[at]).abs().max().item()
+        if not err <= 1e-6 + 1e-5 * want[at].abs().max().item():
+            raise AssertionError(f"forwarding_sweep V={v}: j* entries off by {err}")
+        del got, want, at
+        keep("forwarding_sweep", {
+            "kernel": "forwarding_sweep", "shape": f"B={nb} A={na} K={nk} V={v}",
+            "variant": fw_ops._variant(*fw_ops._geometry(v)[::2]), "max_abs_err": err,
+            "ms": cuda_ms(lambda: fw_ops.update_phi(*args), 20),
+            "plain_ms": cuda_ms(lambda: fw_ref.update_phi_ref(*args), 3, 1),
+            **bound(2 * args[0].numel() * 4, 0), "library_ms": None,
+        }, headline)
+        del args
+        torch.cuda.empty_cache()
     build.reset_launches()
     emit({"phase": 1, "name": "kernels_vs_plain", "rows": rows})
     return summary
+
+
+def forwarding_operands(b, a, k, v, seed):
+    """One forwarding sweep's operands on the card at [B, A, K, V]: a random
+    graph of about 4 out-edges a node over a ring, the link weights on it
+    (BIG off it), q, L, a mass whose last app and last stage are phantoms
+    (mass 0), and phi on the edges summing to the mass; alpha 0.5."""
+    import torch
+    from repro_torch.core.structs import BIG
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device="cuda")
+
+    idx = torch.arange(v, device="cuda")
+    adj = (rand(b, v, v) < min(1.0, 4.0 / v)) | ((idx[:, None] - idx[None, :]).abs() == 1)
+    adj &= ~torch.eye(v, dtype=torch.bool, device="cuda")
+    dp = torch.where(adj, 0.2 + 2.8 * rand(b, v, v), BIG)
+    q, L, mass = 20.0 * rand(b, a, k, v), 0.1 + 1.9 * rand(b, a, k), rand(b, a, k, v)
+    mass[:, -1], mass[:, :, -1] = 0.0, 0.0
+    phi = torch.where(adj[:, None, None], rand(b, a, k, v, v), 0.0)
+    phi = phi / phi.sum(dim=-1, keepdim=True).clamp_min(1e-30) * mass[..., None]
+    return phi, q, dp, L, adj.float(), mass, 0.5
 
 
 def pareto_first_chunk(fleet):
@@ -918,7 +971,8 @@ def phase3(core, pad, counter, stacked, lane0):
     }
     split["profile"] = profile(
         one_round, {"neumann_rows": ("neumann_rows_kernel",), "neumann_cols": ("neumann_cols_kernel",),
-                    "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",)},
+                    "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",),
+                    "forwarding_sweep": ("forwarding_sweep",)},
         sum(split.values())
     )
     emit({
@@ -3595,6 +3649,7 @@ def run_phases(torch, matrix) -> int:
         "neumann": "src/repro_torch/csrc/neumann.cu", "minplus": "src/repro_torch/csrc/minplus.cu",
         "flash": "src/repro_torch/csrc/flash_attention.cu",
         "placement": "src/repro_torch/csrc/placement.cu",
+        "forwarding": "src/repro_torch/csrc/forwarding.cu",
     }
     replaces = {
         "neumann_cols": "src/repro/kernels/neumann/kernel.py:52",
@@ -3603,6 +3658,7 @@ def run_phases(torch, matrix) -> int:
         "minplus_argmin": "src/repro/kernels/minplus/kernel.py:61",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:39",
         "placement_sweep": "no Pallas kernel: src/repro/core/placement.py:103, a lax.scan over apps",
+        "forwarding_sweep": "no Pallas kernel: src/repro/core/forwarding.py, jnp over [B, A, K, V, V]",
     }
     kernels = []
     for name, launches in counter.total.items():

@@ -10,16 +10,17 @@ the scale-invariant relative step of the JAX package:
 
 Blocking rule: improper out-links (q_j >= q_i) drain at the maximal rate
 alpha, so every cycle in the phi-support keeps gain < 1 and (I - Phi^T)
-stays invertible. Dense and batched over [B, A, K, V].
+stays invertible. Dense and batched over [B, A, K, V]. After the cost-to-go
+the update is `kernels.forwarding.update_phi`: one kernel launch a sweep on
+the card, the plain whole-tensor tail on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
-from .marginals import link_marginals
-from .structs import BIG_THRESHOLD, Problem, State, forwarding_mass, one_hot
-
-_PRUNE = 1e-9  # forwarding fractions below this are swept into j*
+from ..kernels.forwarding import ops as sweep_ops
+from .marginals import cost_to_go
+from .structs import Problem, State, forwarding_mass
 
 
 def forwarding_sweep(
@@ -34,32 +35,10 @@ def forwarding_sweep(
 
     `mass` (Eq. 2 emission totals) depends only on x and the destinations,
     fixed across the T_phi inner sweeps, so `forwarding_update` passes it."""
-    n = problem.net.n_nodes
-    delta, aux = link_marginals(problem, state, solver=solver)  # [B, A, K, V, V]
-    q = aux["q"]
+    q, dp, *_ = cost_to_go(problem, state, solver=solver)
     if mass is None:
-        mass = forwarding_mass(state, problem.apps, n)  # [B, A, K, V]
-
-    delta_min = delta.amin(dim=-1, keepdim=True)
-    jstar_oh = one_hot(delta.argmin(dim=-1), n)
-
-    gap = torch.where(delta < BIG_THRESHOLD, delta - delta_min, 0.0)
-    del delta
-    rate = alpha * (gap / (delta_min.abs() + gap + 1e-12))
-    del gap
-
-    # Blocking: improper links (q_j >= q_i) drain at the maximal rate.
-    improper = ~(q[..., None, :] < q[..., :, None])
-    rate = torch.where(improper, alpha, rate)
-
-    phi = state.phi * (1.0 - rate)
-    del rate
-    phi = torch.where(phi < _PRUNE, 0.0, phi)
-
-    # Re-assign the freed mass to j*.
-    phi = phi * (1.0 - jstar_oh)
-    others = phi.sum(dim=-1)
-    phi = phi + jstar_oh * torch.clamp_min(mass - others, 0.0)[..., None]
+        mass = forwarding_mass(state, problem.apps, problem.net.n_nodes)  # [B, A, K, V]
+    phi = sweep_ops.update_phi(state.phi, q, dp, problem.apps.L, problem.net.adj, mass, alpha)
     return State(x=state.x, phi=phi)
 
 

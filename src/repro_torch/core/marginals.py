@@ -30,7 +30,8 @@ from .flow import (
     stage_solve,
     stage_traffic,
 )
-from .structs import BIG, Problem, State, partition_live_mask
+from ..kernels.forwarding import ref as sweep_ref
+from .structs import Problem, State, partition_live_mask
 
 
 def cost_to_go(
@@ -84,7 +85,5 @@ def link_marginals(problem: Problem, state: State, *, solver: str = "neumann"):
     """delta^{a,k}_{ij} = L_{a,k} D'_{ij} + q^{a,k}_j [B, A, K, V, V] (Eq. 10),
     BIG on non-edges. Returns (delta, aux)."""
     q, dp, kappa, t, F, G = cost_to_go(problem, state, solver=solver)
-    L = problem.apps.L  # [B, A, K]
-    delta = L[..., None, None] * dp[:, None, None] + q[..., None, :]
-    delta = torch.where(problem.net.adj[:, None, None] > 0, delta, BIG)
+    delta = sweep_ref.link_delta(q, dp, problem.apps.L, problem.net.adj)
     return delta, {"q": q, "dp": dp, "kappa": kappa, "t": t, "F": F, "G": G}

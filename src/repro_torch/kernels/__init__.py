@@ -11,6 +11,10 @@
   placement
            the sequential placement sweep, one CTA a lane walking its apps
            and partitions in order (csrc/placement.cu)
+  forwarding
+           one forwarding sweep's update of phi, each row's marginals,
+           minimum, decay and reassignment in a warp's registers
+           (csrc/forwarding.cu)
 
 Each package ships ops.py (wrapper: CUDA tensor -> kernel, CPU tensor ->
 plain version) and ref.py (the plain PyTorch versions). `_build` compiles

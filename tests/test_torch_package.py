@@ -21,6 +21,7 @@ from repro_torch import fleet
 from repro_torch.core import alt, engine, scenarios, structs
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.forwarding import ops as fw_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
 from repro_torch.kernels.placement import ops as pl_ops
@@ -396,8 +397,59 @@ def test_placement_sweep_geometry(n, shape):
         pl_ops._geometry(8193)
 
 
+def test_forwarding_sweep_wrapper_raises_instead_of_plain_on_cuda(monkeypatch):
+    """CUDA operands reach the forwarding kernel's launch (which raises
+    without a card) and never the plain tail; dtypes and shapes it cannot
+    take raise first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(fw_ops, "update_phi_ref", _no_plain)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    b, a, k, v = 2, 3, 3, 40
+
+    def operands(**swap):
+        shapes = {"phi": (b, a, k, v, v), "q": (b, a, k, v), "dp": (b, v, v), "L": (b, a, k),
+                  "adj": (b, v, v), "mass": (b, a, k, v)}
+        ts = {n: torch.zeros(s) for n, s in shapes.items()}
+        ts.update(swap)
+        return [_FakeCuda(ts[n]) for n in shapes] + [0.5]
+
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        fw_ops.update_phi(*operands())
+    with pytest.raises(TypeError, match="float32"):
+        fw_ops.update_phi(*operands(q=torch.zeros(b, a, k, v, dtype=torch.float64)))
+    with pytest.raises(ValueError, match="dp"):
+        fw_ops.update_phi(*operands(dp=torch.zeros(b, v, v + 1)))
+    with pytest.raises(ValueError, match="phi"):
+        fw_ops.update_phi(*operands(phi=torch.zeros(b, a, k, v)))
+    with pytest.raises(ValueError, match="shared memory"):
+        fw_ops.update_phi(*operands(phi=torch.empty(1, 1, 1, 30000, 30000, device="meta"),
+                                    q=torch.zeros(1, 1, 1, 30000), dp=torch.zeros(1, 30000, 30000, device="meta"),
+                                    L=torch.zeros(1, 1, 1), adj=torch.zeros(1, 30000, 30000, device="meta"),
+                                    mass=torch.zeros(1, 1, 1, 30000)))
+
+
+@pytest.mark.parametrize("v", [1, 31, 32, 33, 64, 256, 1024, 1025, 5000])
+def test_forwarding_sweep_geometry(v):
+    """Up to 1,024 nodes a row lies in registers on the fewest lanes (4 to
+    32) that hold it at 8 values a lane, npl values a lane in vectors of
+    vec columns dividing V, at most 4 warps a CTA and none without a row;
+    past that the streamed kernel, one row a warp."""
+    npl, vec, seg, warps = fw_ops._geometry(v)
+    assert 1 <= warps <= 4
+    if v > 1024:
+        assert (npl, vec, warps) == (0, 1, 4) and fw_ops._variant(npl, seg) == "streamed"
+        return
+    assert seg in (4, 8, 16, 32) and (seg == 4 or 4 * seg < v)
+    assert npl in (8, 16, 32) and seg * npl >= v and (npl == 8 or seg * npl < 2 * v) and (seg == 32 or npl == 8)
+    assert vec in (1, 4) and v % vec == 0 and (vec == 4 or v % 4)
+    rows_warp = 32 // seg
+    assert (warps - 1) * rows_warp < v and (warps == 4 or warps * rows_warp >= v)
+    assert fw_ops._variant(npl, seg) == f"s{seg}_w{npl}_resident"
+
+
 def test_launch_counts_by_variant(monkeypatch):
-    empty = {"neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {}}
+    empty = {"neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {},
+             "forwarding_sweep": {}}
     assert _build.VARIANT_LAUNCHES.keys() == empty.keys()
     monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
     monkeypatch.setattr(_build, "VARIANT_LAUNCHES", {k: {} for k in empty})
@@ -410,11 +462,15 @@ def test_launch_counts_by_variant(monkeypatch):
     _build.count("minplus_argmin", mp_ops._argmin_variant(2, False))
     _build.count("minplus_argmin", mp_ops._argmin_variant(1, True))
     _build.count("minplus_argmin", mp_ops._argmin_variant(2, False))
+    _build.count("forwarding_sweep", fw_ops._variant(8, 8))
+    _build.count("forwarding_sweep", fw_ops._variant(0, 32))
     assert _build.LAUNCHES["flash_attention"] == 2 and _build.LAUNCHES["minplus"] == 1
+    assert _build.LAUNCHES["forwarding_sweep"] == 2
     assert _build.LAUNCHES["neumann_cols"] == 2 and _build.LAUNCHES["minplus_argmin"] == 3
     assert _build.VARIANT_LAUNCHES == {
         "neumann_cols": {"c4_resident": 1, "c8_streamed": 1}, "neumann_rows": {"c4_resident": 1},
         "minplus_argmin": {"s2_u8": 2, "s1_u32": 1}, "flash_attention": {"wgmma": 2},
+        "forwarding_sweep": {"s8_w8_resident": 1, "streamed": 1},
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values()) and _build.VARIANT_LAUNCHES == empty
@@ -445,7 +501,7 @@ def test_argmin_wrapper_checks_its_split(monkeypatch):
 def test_build_key_tracks_sources():
     """Each CUDA source builds into its own hashed library under build/kernels."""
     paths = {n: _build._lib_path(n) for n in _build.SOURCES}
-    assert set(paths) == {"neumann", "minplus", "flash_attention", "placement"}
+    assert set(paths) == {"neumann", "minplus", "flash_attention", "placement", "forwarding"}
     for n, p in paths.items():
         assert p.parent == ROOT / "build" / "kernels" and p.name.startswith(n + "-")
         assert (PORT / "csrc" / f"{n}.cu").exists()
