@@ -48,10 +48,9 @@ phases, each printing JSON lines:
      activation fed to partition 2, against the monolithic logits;
   7. the fleet path: `solve_fleet` over 64 sampled instances of all four
      families (V up to 256, split depths 1-3, padded to V = 256, A = 40,
-     K = 4) with the round trace, its per-round split, the placement sweep
-     at block_apps 1 and 0, and eight checks: J finite, best of its history
-     and conserving traffic; block_apps=0 and trace=False bitwise the same;
-     two chunks and B = 1 solves of lanes 0-3 at rtol 1e-5 (on at most two
+     K = 4) with the round trace, its per-round split, the placement
+     sweep's time, and seven checks: J finite, best of its history and
+     conserving traffic; trace=False bitwise the same; two chunks and B = 1 solves of lanes 0-3 at rtol 1e-5 (on at most two
      lanes whose hosts differ on a near-tie, 1e-3); one traced solve over
      the fleet bitwise the untraced one, its round phases read from the
      engine's own spans (`solve_fleet.round.*`: finite, within their
@@ -61,8 +60,7 @@ phases, each printing JSON lines:
      non-endpoint node), and the identity with every node live; every
      solver kernel launched. Each solver kernel is also held to its plain
      version on the inputs of one padded round (pad nodes, pad apps,
-     phantom stages), and one sweep's device operations are counted at
-     both block sizes;
+     phantom stages), and one sweep's device operations are counted;
   8. the control plane: `run_control` over phase 7's fleet for 50 fault
      epochs (trace seed 11: node kills, link degradations, a flash crowd;
      m_max 8, t_phi 5), with the warm hop-bound closure and the cached
@@ -1116,8 +1114,8 @@ def fleet_kernels_vs_plain(core, stacked, state) -> dict:
 
 
 def phase7(core, counter, problems):
-    """The fleet path: sample_fleet -> pad -> engine (blocked sweep, trace) ->
-    FleetResult, with the eight checks of the fleet workload, and each
+    """The fleet path: sample_fleet -> pad -> engine (placement sweep, trace) ->
+    FleetResult, with the seven checks of the fleet workload, and each
     solver kernel against its plain version on one padded round."""
     import numpy as np
     import torch
@@ -1148,17 +1146,13 @@ def phase7(core, counter, problems):
     cons = ((absorbed - lam).abs()[real] / lam[real]).max().item()
     if not cons <= 1e-3:
         raise AssertionError(f"phase 7: conservation violated by {cons}")
-    # 8. The path went through every solver kernel (nonzero: counts follow the data).
+    # 7. The path went through every solver kernel (nonzero: counts follow the data).
     for name in ("neumann_cols", "neumann_rows", "minplus", "minplus_argmin"):
         if launches[name] <= 0:
             raise AssertionError(f"phase 7: {name} never launched")
     vs_plain = fleet_kernels_vs_plain(core, stacked, res.state)
 
-    # 2. The blocked sweep, one block over every app: bitwise the same solve.
-    blocked = counter.run(lambda: fleet.solve_fleet(problems, block_apps=0, **kw))
-    if not (np.array_equal(blocked.hosts, res.hosts) and np.array_equal(blocked.J, res.J)):
-        raise AssertionError("phase 7: block_apps=0 is not bitwise block_apps=1")
-    # 3. The trace changes no solved bit.
+    # 2. The trace changes no solved bit.
     untraced = counter.run(lambda: fleet.solve_fleet(problems, trace=False, **kw))
     if not np.array_equal(untraced.J, res.J) or untraced.trace is not None:
         raise AssertionError("phase 7: trace=False changed J")
@@ -1178,18 +1172,18 @@ def phase7(core, counter, problems):
             raise AssertionError(f"phase 7: {what}: {len(ties)} lanes off by more than 1e-5: {ties}")
         return {"max_rel": float(rel.max()), "near_tie_lanes": ties}
 
-    # 4. Two chunks of half the fleet against the single batch.
+    # 3. Two chunks of half the fleet against the single batch.
     chunked = counter.run(lambda: fleet.solve_fleet(problems, chunk_size=FLEET_B // 2, **kw))
     chunk_vs = near(chunked.J, [np.array_equal(chunked.hosts[i], res.hosts[i]) for i in range(FLEET_B)],
                     "chunk_size=B/2")
-    # 5. Lanes 0-3 (one of each family), unpadded at B = 1.
+    # 4. Lanes 0-3 (one of each family), unpadded at B = 1.
     seq = counter.run(lambda: fleet.solve_sequential(problems[:4], m_max=4, t_phi=5))
     seq_same = []
     for i, r in enumerate(seq):
         h = r.state.hosts().cpu().numpy()
         seq_same.append(np.array_equal(h, res.hosts[i, :h.shape[0], :h.shape[1]]))
     seq_vs = near([r.J for r in seq], seq_same, "solve_sequential")
-    # 6. The four methods on lanes 0-7: finite J, hosts only on real nodes.
+    # 5. The four methods on lanes 0-7: finite J, hosts only on real nodes.
     methods = {}
     for m in fleet.METHODS:
         r = counter.run(lambda m=m: fleet.solve_fleet(problems[:8], **{**kw, "method": m}))
@@ -1198,7 +1192,7 @@ def phase7(core, counter, problems):
             raise AssertionError(f"phase 7: {m} J not finite or a host on a pad node")
         methods[m] = {"J_mean": float(r.J.mean()), "rounds": r.rounds}
 
-    # 7. repair_placement: two non-endpoint nodes whose loss keeps the graph
+    # 6. repair_placement: two non-endpoint nodes whose loss keeps the graph
     # connected die, at least one of them hosting a partition. Lane 0 when
     # it has such a host (a depth-1 lane may host every partition at an
     # app endpoint), else the first lane that does.
@@ -1246,7 +1240,7 @@ def phase7(core, counter, problems):
         raise AssertionError(f"phase 7: repair moved {moved} partitions, or moved one off a live node")
 
     # One more round, each step timed with CUDA events (as phase 3), and the
-    # placement sweep at block_apps 1 and 0 on the same inputs, in turns.
+    # placement sweep twice more on the same inputs.
     state = res.state
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     with torch.no_grad():
@@ -1265,16 +1259,13 @@ def phase7(core, counter, problems):
             "init_ms": ev[0].elapsed_time(ev[1]), "round_eval_ms": ev[1].elapsed_time(ev[2]),
             "placement_ms": ev[2].elapsed_time(ev[3]), "forwarding_ms": ev[3].elapsed_time(ev[4]),
         }
-        sweep_ms = {1: [], 0: []}
-        for bk in (1, 0, 0, 1):
-            sweep_ms[bk].append(cuda_ms(lambda: core.placement_update(stacked, state, aux["ctg"], block_apps=bk), 1, 0))
-        # Device operations (kernels, copies, fills) one sweep issues at each
-        # block size, and their device time.
-        sweep_ops = {}
-        for bk in (1, 0):
-            pr = profile(lambda: core.placement_update(stacked, state, aux["ctg"], block_apps=bk), {})
-            sweep_ops[bk] = {"device_ops": pr.get("device_ops", "not measured"),
-                             "device_busy_ms": pr.get("device_busy_ms", "not measured")}
+        sweep_ms = [cuda_ms(lambda: core.placement_update(stacked, state, aux["ctg"]), 1, 0)
+                    for _ in range(2)]
+        # Device operations (kernels, copies, fills) one sweep issues, and
+        # their device time.
+        pr = profile(lambda: core.placement_update(stacked, state, aux["ctg"]), {})
+        sweep_ops = {"device_ops": pr.get("device_ops", "not measured"),
+                     "device_busy_ms": pr.get("device_busy_ms", "not measured")}
         del nxt, aux
 
     def one_round():
@@ -1316,13 +1307,13 @@ def phase7(core, counter, problems):
         "J_mean": float(J.mean()), "conservation_rel": cons, "mean_churn": res.trace.mean_churn(),
         "iters": np.bincount(res.iters, minlength=5).tolist(), "launches": launches,
         "variants": {n: variants[n] for n in ("neumann_cols", "neumann_rows", "minplus_argmin")},
-        "split": split, "profile": prof, "round_phases": phases, "placement_ms_block_apps_1": sweep_ms[1], "placement_ms_block_apps_0": sweep_ms[0],
-        "placement_ops_block_apps_1": sweep_ops[1], "placement_ops_block_apps_0": sweep_ops[0],
+        "split": split, "profile": prof, "round_phases": phases, "placement_ms_block_apps_1": sweep_ms,
+        "placement_ops_block_apps_1": sweep_ops,
         "kernels_vs_plain": vs_plain,
         "chunk_half_vs_single": chunk_vs, "sequential_lanes_0_3_vs_fleet": seq_vs, "methods_lanes_0_7": methods,
         "repair": {"lane": lane, "dead": dead, "hosts_moved": moved, "identity_all_live": True},
     })
-    del res, blocked, untraced, chunked, traced, stacked, state
+    del res, untraced, chunked, traced, stacked, state
     torch.cuda.empty_cache()
     return vs_plain["max_abs_err"], J
 

@@ -32,8 +32,6 @@ from .flow import (  # noqa: F401
 from .forwarding import forwarding_sweep, forwarding_update  # noqa: F401
 from .marginals import cost_to_go, link_marginals, round_eval  # noqa: F401
 from .placement import (  # noqa: F401
-    blocked_placement_update,
-    blocked_sweep_cert,
     placement_update,
     repair_phi,
     repair_placement,

@@ -68,7 +68,6 @@ def solve_alt(
     patience: int = 4,
     colocate: bool = False,
     solver: str = "neumann",
-    block_apps: int = 1,
     name: str = "ALT",
     device: str | torch.device = "cuda",
 ) -> Result:
@@ -76,8 +75,7 @@ def solve_alt(
     stops when the best J has not improved by `tol` for `patience` rounds."""
     return _engine_result(
         problem, name, m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol,
-        patience=patience, colocate=colocate, track_best=True, solver=solver,
-        block_apps=block_apps, device=device,
+        patience=patience, colocate=colocate, track_best=True, solver=solver, device=device,
     )
 
 
@@ -87,15 +85,13 @@ def solve_oneshot(
     t_phi: int = 10,
     alpha: float = 0.5,
     solver: str = "neumann",
-    block_apps: int = 1,
     device: str | torch.device = "cuda",
 ) -> Result:
     """One placement/forwarding round (the engine at m_max=1, returning the
     final iterate): isolates the value of alternation."""
     return _engine_result(
         problem, "OneShot", m_max=1, t_phi=t_phi, alpha=alpha, tol=1e-3,
-        patience=1, colocate=False, track_best=False, solver=solver,
-        block_apps=block_apps, device=device,
+        patience=1, colocate=False, track_best=False, solver=solver, device=device,
     )
 
 
@@ -147,14 +143,12 @@ def solve_colocated(
     tol: float = 1e-3,
     patience: int = 4,
     solver: str = "neumann",
-    block_apps: int = 1,
     device: str | torch.device = "cuda",
 ) -> Result:
     """All partitions at a single node; forwarding still congestion-aware."""
     return solve_alt(
         problem, m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
-        colocate=True, solver=solver, block_apps=block_apps, name="CoLocated",
-        device=device,
+        colocate=True, solver=solver, name="CoLocated", device=device,
     )
 
 
@@ -167,11 +161,10 @@ ALL_METHODS = {
 
 # The one source of truth for which solver kwargs each method accepts.
 METHOD_KWARGS = {
-    "ALT": ("m_max", "t_phi", "alpha", "tol", "patience", "solver", "block_apps"),
-    "OneShot": ("t_phi", "alpha", "solver", "block_apps"),
-    # CongUnaware runs no placement sweep, so the sweep schedule does not apply.
+    "ALT": ("m_max", "t_phi", "alpha", "tol", "patience", "solver"),
+    "OneShot": ("t_phi", "alpha", "solver"),
     "CongUnaware": ("solver",),
-    "CoLocated": ("m_max", "t_phi", "alpha", "tol", "patience", "solver", "block_apps"),
+    "CoLocated": ("m_max", "t_phi", "alpha", "tol", "patience", "solver"),
 }
 
 

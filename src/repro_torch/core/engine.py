@@ -131,17 +131,13 @@ def round_step(
     patience: int,
     colocate: bool,
     solver: str,
-    block_apps: int = 1,
 ) -> EngineCarry:
     """One batched ALT round: Algorithm 1's loop body plus bookkeeping.
 
     Stall is measured against the best J before this round's update, and
     every carry slot of a frozen lane is masked back to its old value."""
     with span("solve_fleet.round.placement"):
-        nxt = placement_update(
-            problem, carry.state, carry.aux["ctg"], colocate=colocate, solver=solver,
-            block_apps=block_apps,
-        )
+        nxt = placement_update(problem, carry.state, carry.aux["ctg"], colocate=colocate, solver=solver)
     with span("solve_fleet.round.forwarding", t_phi=t_phi):
         nxt = forwarding_update(problem, nxt, t_phi=t_phi, alpha=alpha, solver=solver)
     with span("solve_fleet.round.eval"):
@@ -198,7 +194,7 @@ def _any_active(active: torch.Tensor, group) -> bool:
 
 
 def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate, track_best,
-                        solver, trace, block_apps, keep_state, init_state, active0, group, dev) -> dict:
+                        solver, trace, keep_state, init_state, active0, group, dev) -> dict:
     """The fused-batch engine: init, then one lockstep round loop over every
     lane of `stacked` (see `engine_solve`)."""
     if init_state is None:
@@ -246,7 +242,7 @@ def _engine_solve_batch(stacked, *, m_max, t_phi, alpha, tol, patience, colocate
         with sync_span("solve_fleet.round", m=carry.m + 1):
             carry = round_step(
                 stacked, carry, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
-                colocate=colocate, solver=solver, block_apps=block_apps,
+                colocate=colocate, solver=solver,
             )
             live = carry.m < m_max and _any_active(carry.active, group)
     if track_best:
@@ -302,7 +298,6 @@ def engine_solve(
     track_best: bool = True,
     solver: str = "neumann",
     trace: bool = False,
-    block_apps: int = 1,
     lane_chunk: int | None = 0,
     keep_state: bool = True,
     init_state: State | None = None,
@@ -344,8 +339,8 @@ def engine_solve(
         raise ValueError(f"lane_chunk must be >= 0, got {lane_chunk}")
     kw = dict(
         m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience, colocate=colocate,
-        track_best=track_best, solver=solver, trace=trace, block_apps=block_apps,
-        keep_state=keep_state, group=group, dev=dev,
+        track_best=track_best, solver=solver, trace=trace, keep_state=keep_state,
+        group=group, dev=dev,
     )
     if not lane_chunk:
         return _engine_solve_batch(stacked, init_state=init_state, active0=active0, **kw)

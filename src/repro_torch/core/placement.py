@@ -14,23 +14,11 @@ with `up_a` the NEW host of partition p-1 (s_a for p = 0) and `down_a` the
 OLD host of partition p+1 (d_a for the last live partition); partitions
 are updated in order (the paper's footnote 5).
 
-Sweep schedules (`block_apps`, DESIGN.md section 18), both vectorised over
-the instance axis B:
-
-  * `block_apps=1`: the paper's sequential Gauss-Seidel scan over
-    applications (kernels/placement): on the card one kernel launch a
-    sweep, one CTA walking a lane's apps and partitions; on the CPU a
-    Python loop over apps and partitions that evaluates the dense compute
-    marginal `cprime(G)` at every step. The two give the same hosts.
-  * `block_apps=k>1` (0 = all apps in one block): the blocked sweep. Per
-    block the downstream score legs of all k apps and one dense
-    `cprime(G)` base are computed at once; the decisions stay a serial
-    walk in app order, with the compute marginal corrected only on the
-    <= 2P node slots an app's own removals and choices touch, and every
-    commit's delta folded into the carried marginal at the slots it
-    touched. Every decision sees the bits the sequential scan would, so
-    the result is bitwise invariant to the block size. The walk reads no
-    value back to the host.
+The sweep is the paper's sequential Gauss-Seidel scan over applications
+(kernels/placement), vectorised over the instance axis B: on the card one
+kernel launch a sweep, one CTA walking a lane's apps and partitions; on the
+CPU a Python loop over apps and partitions that evaluates the dense compute
+marginal `cprime(G)` at every step. The two give the same hosts.
 
 After placement changes, every (app, stage) whose target host moved gets
 phi rebuilt as the shortest-path next-hop tree toward the new host under
@@ -80,183 +68,13 @@ def zero_load_dp(problem: Problem) -> torch.Tensor:
 
 def comp_marginal(problem: Problem):
     """cprime(G) = w_comp * D'_comp(G): the dense compute marginal [B, V]
-    that both sweeps score with."""
+    that the sweep scores with."""
     cm, nu = problem.cost, problem.net.nu
 
     def cprime(Gv):
         return bview(cm.w_comp, Gv.ndim) * costs.comp_cost_prime(Gv, nu, cm)
 
     return cprime
-
-
-def _blocked_sweep(problem, hosts, dist, G, cprime, cprime_at, *, colocate, move_margin, bk, with_cert):
-    """Blocked placement sweep: batched per-block precompute around an exact
-    serial decision core (module doc).
-
-    Per block of `bk` apps (the last block may be shorter):
-
-      1. PRECOMPUTE, batched over [B, bk, ...]: the downstream legs
-         `L_dn * dist[:, down]` (old-host anchored, as in the sequential
-         scan) and one dense `cprime(G)` base at the block-entry G.
-      2. DECIDE + COMMIT, serial in app order: partition p's row is
-         assembled in the sequential scan's operation order,
-         `(L_up * dist[up, :] + w_p * cprime) + downstream`, with the compute
-         marginal recomputed only on the tracked slots `I` (the P old hosts,
-         then one slot per chain step retargeted to the chosen host), whose
-         values `gval` replay the scan's own-load operations, and scattered
-         into the carried marginal before the row is formed. Each commit
-         applies removals then additions in partition order and refreshes
-         the carried marginal `cpw` at the slots it touched. Slots that hold
-         the same node hold the same value, so scattering them is
-         order-safe.
-
-    Returns (hosts_new [B, A, P], cert), cert None unless `with_cert`: the
-    decision certificates (old and final hosts, the moved mask, the scores
-    S_new / S_old of each decision in its context, one column per app under
-    `colocate`, and the block-entry G [B, n_blocks, V])."""
-    apps = problem.apps
-    n_apps, n_parts = hosts.shape[-2:]
-    dev = hosts.device
-    bidx = torch.arange(hosts.shape[0], device=dev)
-    p_idx = torch.arange(n_parts, device=dev)
-    # Column P + p of the tracked slots: chain step p's chosen host.
-    step_col = [torch.full((hosts.shape[0], 1), n_parts + p, device=dev) for p in range(n_parts)]
-    margin = 1.0 - move_margin
-
-    live_all = p_idx < apps.parts[..., None]  # [B, A, P]
-    rem_all = apps.w * apps.lam[..., None]  # own loads, phantom ones exact zeros
-    add_all = torch.where(live_all, rem_all, 0.0)
-    down_all = torch.where(
-        p_idx + 1 < apps.parts[..., None],
-        torch.cat([hosts[..., 1:], apps.dst[..., None]], dim=-1),
-        apps.dst[..., None],
-    )
-    dist_t = dist.mT  # dist_t[b, t] = dist[b, :, t]
-
-    def pick(S, h_prev):
-        cand = S.argmin(dim=-1)
-        better = S[bidx, cand] < margin * S[bidx, h_prev]
-        return torch.where(better, cand, h_prev)
-
-    Gc = G
-    h_out, s_new, s_old, g_entry = [], [], [], []
-    for j0 in range(0, n_apps, bk):
-        j1 = min(j0 + bk, n_apps)
-        g_entry.append(Gc)
-        cpw = cprime(Gc)  # the block's dense base
-        if colocate:
-            DN = (torch.gather(apps.L[:, j0:j1], 2, apps.parts[:, j0:j1, None])
-                  * dist_t[bidx[:, None], apps.dst[:, j0:j1]])  # [B, bk, V]
-        else:
-            DN = apps.L[:, j0:j1, 1:, None] * dist_t[bidx[:, None, None], down_all[:, j0:j1]]  # [B, bk, P, V]
-        for a in range(j0, j1):
-            h_old = hosts[:, a]  # [B, P]
-            rem, add, live = rem_all[:, a], add_all[:, a], live_all[:, a]
-            src, L_a, w_a = apps.src[:, a], apps.L[:, a], apps.w[:, a]
-            if colocate:
-                I = h_old
-                gval = Gc.gather(1, I)
-                for p2 in range(n_parts):
-                    gval = gval - torch.where(I == h_old[:, p2, None], rem[:, p2, None], 0.0)
-                w_tot = torch.where(live, w_a, 0.0).sum(dim=-1)
-                load_tot = torch.where(live, rem, 0.0).sum(dim=-1)
-                cp = cpw.scatter(1, I, cprime_at(gval, I))
-                S = L_a[:, 0, None] * dist[bidx, src] + w_tot[:, None] * cp + DN[:, a - j0]
-                h = pick(S, h_old[:, 0])
-                for p2 in range(n_parts):
-                    Gc = Gc.scatter_add(1, h_old[:, p2, None], -rem[:, p2, None])
-                Gc = Gc.scatter_add(1, h[:, None], load_tot[:, None])
-                I = torch.cat([h_old, h[:, None]], dim=1)
-                cpw = cpw.scatter(1, I, cprime_at(Gc.gather(1, I), I))
-                h_out.append(torch.where(live, h[:, None], h_old))
-                if with_cert:
-                    s_new.append(S[bidx, h][:, None])
-                    s_old.append(S[bidx, h_old[:, 0]][:, None])
-                continue
-
-            I = torch.cat([h_old, h_old], dim=1)  # [B, 2P] tracked slots
-            gval = Gc.gather(1, I)
-            for p2 in range(n_parts):
-                gval = gval - torch.where(I == h_old[:, p2, None], rem[:, p2, None], 0.0)
-            up = src
-            hs, sn, so = [], [], []
-            for p in range(n_parts):
-                cp = cpw.scatter(1, I, cprime_at(gval, I))
-                S = L_a[:, p, None] * dist[bidx, up] + w_a[:, p, None] * cp + DN[:, a - j0, p]
-                h = torch.where(live[:, p], pick(S, h_old[:, p]), h_old[:, p])
-                # Retarget this step's slot to the chosen host: a tracked
-                # node carries its tracked value (equal in every slot that
-                # holds it), any other node the carried G.
-                match = I == h[:, None]
-                tracked = torch.where(match, gval, -torch.inf).amax(dim=-1)
-                val_h = torch.where(match.any(dim=-1), tracked, Gc[bidx, h])
-                I = I.scatter(1, step_col[p], h[:, None])
-                gval = gval.scatter(1, step_col[p], val_h[:, None])
-                gval = gval + torch.where(I == h[:, None], add[:, p, None], 0.0)
-                hs.append(h)
-                if with_cert:
-                    sn.append(torch.where(live[:, p], S[bidx, h], S[bidx, h_old[:, p]]))
-                    so.append(S[bidx, h_old[:, p]])
-                up = h
-            h_fin = torch.stack(hs, dim=1)
-            # Commit in the scan's order (removals, then additions), then
-            # refresh the carried marginal at exactly the tracked slots.
-            for p2 in range(n_parts):
-                Gc = Gc.scatter_add(1, h_old[:, p2, None], -rem[:, p2, None])
-            for p2 in range(n_parts):
-                Gc = Gc.scatter_add(1, h_fin[:, p2, None], add[:, p2, None])
-            cpw = cpw.scatter(1, I, cprime_at(Gc.gather(1, I), I))
-            h_out.append(h_fin)
-            if with_cert:
-                s_new.append(torch.stack(sn, dim=1))
-                s_old.append(torch.stack(so, dim=1))
-    hosts_new = torch.stack(h_out, dim=1)  # [B, A, P]
-    if not with_cert:
-        return hosts_new, None
-    cert = {
-        "h_old": hosts,
-        "h_fin": hosts_new,
-        "moved": hosts_new != hosts,
-        "S_new": torch.stack(s_new, dim=1),
-        "S_old": torch.stack(s_old, dim=1),
-        "G_entry": torch.stack(g_entry, dim=1),
-        "block": bk,
-    }
-    return hosts_new, cert
-
-
-def _placement_update_impl(problem, state, ctg, *, colocate, move_margin, solver, block_apps,
-                           force_blocked, with_cert=False):
-    if block_apps < 0:
-        raise ValueError(f"block_apps must be >= 0 (0 = all apps per block), got {block_apps}")
-    n = problem.net.n_nodes
-    if ctg is None:
-        ctg = cost_to_go(problem, state, solver=solver)
-    q, dp, kappa, t, F, G = ctg
-    dist, nexthop = apsp_with_nexthop(dp)
-    cm, nu = problem.cost, problem.net.nu
-    cprime = comp_marginal(problem)
-
-    def cprime_at(g, idx):
-        # The same elementwise marginal at gathered node slots: gathering nu
-        # keeps each slot bitwise equal to the dense vector's entry.
-        return bview(cm.w_comp, g.ndim) * costs.comp_cost_prime(g, nu.gather(-1, idx), cm)
-
-    hosts = state.hosts()
-    a_tot = problem.apps.n_apps
-    bk = a_tot if (block_apps == 0 or block_apps >= a_tot) else block_apps
-    cert = None
-    if bk <= 1 and not force_blocked:
-        hosts_new = sweep_ops.placement_sweep(
-            problem, hosts, dist, G, cprime, colocate=colocate, move_margin=move_margin
-        )
-    else:
-        hosts_new, cert = _blocked_sweep(
-            problem, hosts, dist, G, cprime, cprime_at, colocate=colocate,
-            move_margin=move_margin, bk=max(bk, 1), with_cert=with_cert,
-        )
-    new_state = State(x=one_hot(hosts_new, n), phi=state.phi)
-    return repair_phi(problem, state, new_state, nexthop), cert
 
 
 def placement_update(
@@ -267,62 +85,23 @@ def placement_update(
     colocate: bool = False,
     move_margin: float = 0.02,
     solver: str = "neumann",
-    block_apps: int = 1,
 ) -> State:
     """One placement reassignment sweep over all applications.
 
     `ctg` is an optional (q, dp, kappa, t, F, G) tuple from `cost_to_go` /
     `round_eval` evaluated at `state` (the engine passes the round-final
-    evaluation). Link marginals stay fixed during the sweep. `block_apps`
-    selects the schedule (module doc): 1 = the sequential scan, k > 1 = the
-    blocked sweep in blocks of k apps, 0 = one block over every app; the
-    result is bitwise the same for every value. Negative values raise
-    ValueError."""
-    new_state, _ = _placement_update_impl(
-        problem, state, ctg, colocate=colocate, move_margin=move_margin, solver=solver,
-        block_apps=block_apps, force_blocked=False,
+    evaluation). Link marginals stay fixed during the sweep."""
+    n = problem.net.n_nodes
+    if ctg is None:
+        ctg = cost_to_go(problem, state, solver=solver)
+    q, dp, kappa, t, F, G = ctg
+    dist, nexthop = apsp_with_nexthop(dp)
+    hosts_new = sweep_ops.placement_sweep(
+        problem, state.hosts(), dist, G, comp_marginal(problem), colocate=colocate,
+        move_margin=move_margin,
     )
-    return new_state
-
-
-def blocked_placement_update(
-    problem: Problem,
-    state: State,
-    ctg=None,
-    *,
-    colocate: bool = False,
-    move_margin: float = 0.02,
-    solver: str = "neumann",
-    block_apps: int = 1,
-) -> State:
-    """`placement_update` forced through the blocked sweep at any block size,
-    1 included: the test entry behind the claim that the blocked algorithm,
-    not a dispatch branch, reproduces the sequential scan bitwise."""
-    new_state, _ = _placement_update_impl(
-        problem, state, ctg, colocate=colocate, move_margin=move_margin, solver=solver,
-        block_apps=block_apps, force_blocked=True,
-    )
-    return new_state
-
-
-def blocked_sweep_cert(
-    problem: Problem,
-    state: State,
-    ctg=None,
-    *,
-    colocate: bool = False,
-    move_margin: float = 0.02,
-    solver: str = "neumann",
-    block_apps: int = 1,
-) -> dict:
-    """The decision certificates of one blocked sweep (see `_blocked_sweep`):
-    every committed move carries S_new < (1 - move_margin) * S_old in its
-    decision context."""
-    _, cert = _placement_update_impl(
-        problem, state, ctg, colocate=colocate, move_margin=move_margin, solver=solver,
-        block_apps=block_apps, force_blocked=True, with_cert=True,
-    )
-    return cert
+    new_state = State(x=one_hot(hosts_new, n), phi=state.phi)
+    return repair_phi(problem, state, new_state, nexthop)
 
 
 def repair_phi(

@@ -268,7 +268,6 @@ def _solve_fleet_stacked(
     solver: str,
     trace: bool = True,
     keep_state: bool = False,
-    block_apps: int = 1,
     lane_chunk: int = 0,
     init_state: State | None = None,
     active0=None,
@@ -290,7 +289,6 @@ def _solve_fleet_stacked(
         track_best=method != "OneShot",
         solver=solver,
         trace=trace,
-        block_apps=block_apps,
         lane_chunk=lane_chunk,
         keep_state=keep_state,
         init_state=init_state,
@@ -455,9 +453,10 @@ def solve_fleet(
                  take rank 0's result (with devices=1, rank 0 solves
                  unsharded and every other rank takes its result)
     solver     : "neumann" (hop-capped propagation, default) | "lu"
-    block_apps : placement sweep schedule (core/placement.py): 1 = the
-                 sequential scan, k > 1 = blocks of k apps, 0 = one block;
-                 bitwise the same result for every value
+    block_apps : names one of the JAX package's placement sweep schedules
+                 (1 = the sequential scan, k > 1 = blocks of k apps, 0 = one
+                 block), all of which give the scan's hosts bitwise; the
+                 port runs the scan for every value. Negative values raise
     lane_chunk : engine layout over the instance axis (`engine_solve`):
                  0 or None = the fused batch, k >= 1 = k-lane slices (which
                  a fleet mesh of two or more ranks refuses)
@@ -481,6 +480,8 @@ def solve_fleet(
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    if block_apps < 0:
+        raise ValueError(f"block_apps must be >= 0 (0 = all apps per block), got {block_apps}")
     problems = list(problems)
     with sync_span("solve_fleet.call", batch=len(problems)):
         if validate:
@@ -505,8 +506,8 @@ def solve_fleet(
             )
         solve_kw = dict(
             method=method, m_max=m_max, t_phi=t_phi, alpha=alpha, tol=tol, patience=patience,
-            solver=solver, trace=trace, keep_state=keep_state, block_apps=block_apps,
-            lane_chunk=lane_chunk or 0, device=device,
+            solver=solver, trace=trace, keep_state=keep_state, lane_chunk=lane_chunk or 0,
+            device=device,
         )
         n = len(problems)
         if envelope_cap_gb is not None:

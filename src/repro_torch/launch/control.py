@@ -208,9 +208,10 @@ def run_control(
     verify_apsp0 : per warm epoch whose zero-load APSP came from the cache,
                    recompute it from scratch and assert the `Apsp0Cache`
                    pair the repair consumed matches it bitwise
-    block_apps / lane_chunk : forwarded to every `solve_fleet` rung — the
-                   placement sweep schedule and the engine's lane layout
-                   (both bitwise-invariant knobs; see fleet/solve.py)
+    block_apps / lane_chunk : forwarded to every `solve_fleet` rung — a
+                   name of the JAX package's sweep schedule (the port runs
+                   the sequential scan for every value) and the engine's
+                   lane layout (both bitwise-invariant; see fleet/solve.py)
     shard / devices : as `solve_fleet`; the ranks are checked before the
                    first epoch, so a mesh wider than the process group
                    raises instead of sending every epoch down the ladder.
@@ -468,8 +469,9 @@ def main(argv=None) -> int:
                     help="assert the cached zero-load APSP behind each warm epoch's repair matches "
                     "a from-scratch solve bitwise (exactness gate)")
     ap.add_argument("--block-apps", type=int, default=1,
-                    help="placement sweep schedule for every solve rung (1 = sequential scan, "
-                    "k > 1 = blocked, 0 = one block; bitwise-invariant)")
+                    help="the JAX package's placement sweep schedule, forwarded to every solve rung "
+                    "(1 = sequential scan, k > 1 = blocked, 0 = one block; bitwise-invariant); "
+                    "the port runs the sequential scan for every value")
     ap.add_argument("--lane-chunk", type=int, default=None,
                     help="engine layout over the instance axis (0 or unset = the fused batch, "
                     "k >= 1 = k-lane slices; the same result)")

@@ -61,8 +61,9 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-size", type=int, default=None,
                     help="split fleets larger than this into fixed-B chunks sharing one envelope")
     ap.add_argument("--block-apps", type=int, default=1,
-                    help="placement sweep schedule: 1 = sequential scan (default), k > 1 = blocks of "
-                    "k apps, 0 = one block; bitwise the same result")
+                    help="the JAX package's placement sweep schedule: 1 = sequential scan (default), "
+                    "k > 1 = blocks of k apps, 0 = one block; bitwise the same result. The port "
+                    "runs the sequential scan for every value")
     ap.add_argument("--lane-chunk", type=int, default=None,
                     help="engine layout over the instance axis: 0 or unset = the fused batch, "
                     "k >= 1 = k-lane slices; the same result")

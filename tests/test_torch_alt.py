@@ -11,7 +11,7 @@ import torch
 from _torch_bridge import to_torch_problem
 from repro import core as J
 from repro_torch import core as T
-from repro_torch.fleet import stack_problems, unify_hop_bound
+from repro_torch.fleet import solve_fleet, stack_problems, unify_hop_bound
 
 jax.config.update("jax_enable_x64", False)
 
@@ -26,19 +26,27 @@ def port_results():
     }
 
 
+JAX_INPUTS = {
+    "neumann": dict(solver="neumann"),
+    "lu": dict(solver="lu"),
+    "blocked": dict(block_apps=0),
+}
+
+
 @pytest.mark.parametrize("name", NAMES)
-@pytest.mark.parametrize("jax_solver", ["neumann", "lu"])
-def test_compare_all_matches_jax(name, jax_solver, port_results):
-    """J of all four methods at rtol 1e-5, against JAX's default path and
-    its dense-LU path."""
-    want = J.compare_all(J.SCENARIOS[name](), solver=jax_solver)
+@pytest.mark.parametrize("jax_input", list(JAX_INPUTS))
+def test_compare_all_matches_jax(name, jax_input, port_results):
+    """J of all four methods at rtol 1e-5, against JAX's default path, its
+    dense-LU path and its blocked placement sweep (one block over every
+    app), which the port's one schedule, the sequential scan, matches."""
+    want = J.compare_all(J.SCENARIOS[name](), **JAX_INPUTS[jax_input])
     got = port_results[name]
     for method in J.ALL_METHODS:
         np.testing.assert_allclose(got[method].J, want[method].J, rtol=1e-5, err_msg=method)
         np.testing.assert_allclose(got[method].J_comm, want[method].J_comm, rtol=1e-5, err_msg=method)
         np.testing.assert_allclose(got[method].J_comp, want[method].J_comp, rtol=1e-5, err_msg=method)
         assert np.array_equal(got[method].state.hosts().numpy(), np.asarray(want[method].state.hosts()))
-        if jax_solver == "neumann":
+        if jax_input != "lu":
             assert got[method].iters == want[method].iters, method
 
 
@@ -135,16 +143,14 @@ def test_unknown_kwargs_raise():
         T.compare_all(p, device="cpu", use_pallas=True)
 
 
-def test_blocked_sweep_not_ported_raises():
-    """The blocked sweep, once unported, now solves: block_apps=4 gives the
-    sequential scan's result, and only a negative block size raises (the
-    test keeps the name it had while the sweep raised)."""
+def test_block_apps_stops_at_solve_fleet():
+    """`block_apps` is taken by `solve_fleet` alone, which checks it; the
+    solvers below it reject it as an unknown kwarg."""
     p = T.iot(device="cpu")
-    want = T.solve_alt(p, m_max=2, device="cpu")
-    got = T.solve_alt(p, block_apps=4, m_max=2, device="cpu")
-    assert got.J == want.J and torch.equal(got.state.hosts(), want.state.hosts())
     with pytest.raises(ValueError, match="block_apps"):
-        T.solve_alt(p, block_apps=-1, m_max=2, device="cpu")
+        solve_fleet([p], block_apps=-1, m_max=2, device="cpu")
+    with pytest.raises(TypeError):
+        T.solve_alt(p, block_apps=0, m_max=2, device="cpu")
 
 
 def test_stack_problems_rejects_ragged_and_mixed():

@@ -1,9 +1,9 @@
-"""The port's placement sweeps, `repair_placement` and the engine's round
-trace, on the CPU: the sequential sweep's dispatch (CPU tensors run the
-plain scan) and the plain scan against the JAX package's, the blocked sweep
-against the port's sequential scan (bitwise, every block size) and against
-the JAX package's sweep, the certificates, failure repair against JAX's,
-and the trace against JAX's."""
+"""The port's placement sweep, `repair_placement` and the engine's round
+trace, on the CPU: the sweep's dispatch (CPU tensors run the plain scan),
+the plain scan against the JAX package's scan, the port's one schedule
+against the JAX package's blocked sweep at every block size (on the paper
+topologies and on a padded mixed-depth fleet), failure repair against
+JAX's, and the trace against JAX's."""
 import dataclasses
 
 import jax
@@ -14,13 +14,14 @@ import torch
 
 from _torch_bridge import to_jax_state, to_torch_problem
 from repro import core as J
+from repro import fleet as JF
 from repro.core import engine as j_engine
 from repro.core import placement as j_placement
 from repro.fleet import pad as j_pad
 from repro_torch import core as T
 from repro_torch.core import _graphs
 from repro_torch.core import placement as t_placement
-from repro_torch.fleet import NU_PAD, stack_problems
+from repro_torch.fleet import NU_PAD, sample_fleet, stack_problems
 from repro_torch.kernels import _build
 from repro_torch.kernels.minplus import apsp_with_nexthop
 from repro_torch.kernels.placement import ops as sweep_ops
@@ -58,8 +59,7 @@ def _sweep_operands(st, s0, ctg):
 @pytest.mark.parametrize("name", NAMES)
 def test_sweep_dispatch_runs_plain_on_cpu(sweep_inputs, name, colocate, monkeypatch):
     """On CPU tensors `ops.placement_sweep` is `ref.sequential_sweep`,
-    bitwise, and launches no kernel; `placement_update` at block_apps 1
-    commits its hosts."""
+    bitwise, and launches no kernel; `placement_update` commits its hosts."""
     _, st, s0, ctg = sweep_inputs[name, colocate]
     hosts, dist, G, cprime = _sweep_operands(st, s0, ctg)
     monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
@@ -89,87 +89,47 @@ def test_plain_sweep_matches_jax_scan(sweep_inputs, name, colocate):
         np.testing.assert_allclose(float(j_got[0]), float(j_want), rtol=1e-5)
 
 
-@pytest.mark.parametrize("colocate", [False, True], ids=["chain", "colocated"])
-@pytest.mark.parametrize("name", NAMES)
-def test_blocked_sweep_bitwise_equals_sequential(sweep_inputs, name, colocate):
-    """The blocked algorithm at block sizes 1, 4, A and 0 gives the port's
-    sequential scan bitwise, and the production dispatch does too."""
-    jp, st, s0, ctg = sweep_inputs[name, colocate]
-    ref = T.placement_update(st, s0, ctg, colocate=colocate)
-    assert bool((ref.hosts() != s0.hosts()).any())  # the sweep moves hosts
-    for bk in (1, 4, jp.apps.n_apps, 0):
-        for fn in (t_placement.blocked_placement_update, T.placement_update):
-            got = fn(st, s0, ctg, colocate=colocate, block_apps=bk)
-            assert torch.equal(got.x, ref.x) and torch.equal(got.phi, ref.phi), (fn.__name__, bk)
-
-
-@pytest.mark.parametrize("colocate", [False, True], ids=["chain", "colocated"])
-@pytest.mark.parametrize("name", NAMES)
-def test_blocked_sweep_matches_jax(sweep_inputs, name, colocate):
-    """The port's blocked sweep against JAX's at block size 4 on the same
-    state: hosts equal, or, on a placement near-tie, the swept states' J
-    at rtol 1e-5."""
-    jp, st, s0, ctg = sweep_inputs[name, colocate]
-    got = T.placement_update(st, s0, ctg, colocate=colocate, block_apps=4)
-    want = J.blocked_placement_update(jp, to_jax_state(T.engine._squeeze(s0)), colocate=colocate,
-                                      block_apps=4)
-    want_hosts = np.asarray(want.hosts())
-    if not np.array_equal(got.hosts()[0].numpy(), want_hosts):
+def _assert_hosts_or_tie(st, got, lane, jp, want):
+    """Lane `lane` of the port's swept state against the JAX package's: hosts
+    equal, or, on a placement near-tie, the swept states' J at rtol 1e-5."""
+    if not np.array_equal(got.hosts()[lane].numpy(), np.asarray(want.hosts())):
         j_got, _ = T.round_eval(st, got)
         j_want, _ = J.round_eval(jp, want)
-        np.testing.assert_allclose(float(j_got[0]), float(j_want), rtol=1e-5)
+        np.testing.assert_allclose(float(j_got[lane]), float(j_want), rtol=1e-5)
 
 
+@pytest.mark.parametrize("bk", [1, 4, 0])
 @pytest.mark.parametrize("colocate", [False, True], ids=["chain", "colocated"])
 @pytest.mark.parametrize("name", NAMES)
-def test_blocked_sweep_certificates(sweep_inputs, name, colocate):
-    """Every committed move beats its decision context's score by the
-    margin; unmoved partitions score unchanged; the certificate's hosts are
-    the update's."""
-    _, st, s0, ctg = sweep_inputs[name, colocate]
-    cert = t_placement.blocked_sweep_cert(st, s0, ctg, colocate=colocate, block_apps=4,
-                                          move_margin=MOVE_MARGIN)
-    moved = cert["moved"][..., :1] if colocate else cert["moved"]
-    s_new, s_old = cert["S_new"], cert["S_old"]
-    assert bool(moved.any())
-    assert bool((s_new[moved] < (1.0 - MOVE_MARGIN) * s_old[moved]).all())
-    assert torch.equal(s_new[~moved], s_old[~moved])
-    upd = T.placement_update(st, s0, ctg, colocate=colocate, block_apps=4)
-    assert torch.equal(cert["h_fin"], upd.hosts())
-    n_blocks = -(-st.apps.n_apps // 4)
-    assert cert["G_entry"].shape == (1, n_blocks, st.net.n_nodes) and cert["block"] == 4
+def test_sweep_matches_jax_blocked(sweep_inputs, name, colocate, bk):
+    """The port's one schedule, the sequential scan, against the JAX
+    package's blocked sweep at block sizes 1, 4 and 0 (one block over every
+    app) on the same state."""
+    jp, st, s0, ctg = sweep_inputs[name, colocate]
+    got = T.placement_update(st, s0, ctg, colocate=colocate)
+    want = J.blocked_placement_update(jp, to_jax_state(T.engine._squeeze(s0)), colocate=colocate,
+                                      block_apps=bk)
+    _assert_hosts_or_tie(st, got, 0, jp, want)
 
 
-def test_blocked_sweep_mixed_p_fleet_bitwise():
+@pytest.mark.parametrize("bk", [3, 0])
+def test_sweep_matches_jax_blocked_mixed_p_fleet(bk):
     """A stacked mixed-depth fleet (phantom stages, pad nodes and pad apps
-    at V = 31, not a multiple of 4): blocked equals sequential bitwise."""
-    from repro_torch.fleet import sample_fleet
-
-    st, _ = stack_problems(sample_fleet(4, seed=0, partitions=(1, 2, 3), device="cpu"))
+    at V = 31, not a multiple of 4): the port's sweep against the JAX
+    package's blocked sweep, lane by lane on the JAX package's own stack of
+    the same instances."""
+    kw = dict(seed=0, partitions=(1, 2, 3))
+    st, _ = stack_problems(sample_fleet(4, device="cpu", **kw))
+    js, _ = JF.stack_problems(JF.sample_fleet(4, **kw))
     s0 = T.forwarding_update(st, T.structured_init(st), t_phi=2)
     _, aux = T.round_eval(st, s0)
-    ref = T.placement_update(st, s0, aux["ctg"])
-    hosts, dist, G, cprime = _sweep_operands(st, s0, aux["ctg"])
-    plain = sweep_ref.sequential_sweep(st, hosts, dist, G, cprime, colocate=False, move_margin=MOVE_MARGIN)
-    assert torch.equal(ref.hosts(), plain)
-    for bk in (1, 3, 0):
-        got = t_placement.blocked_placement_update(st, s0, aux["ctg"], block_apps=bk)
-        assert torch.equal(got.x, ref.x) and torch.equal(got.phi, ref.phi), bk
-
-
-def test_negative_block_apps_rejected(sweep_inputs):
-    _, st, s0, ctg = sweep_inputs["iot", False]
-    with pytest.raises(ValueError, match="block_apps must be >= 0"):
-        T.placement_update(st, s0, ctg, block_apps=-1)
-
-
-@pytest.mark.parametrize("name", NAMES)
-def test_solve_alt_block_invariant(name):
-    p = T.SCENARIOS[name](device="cpu")
-    ref = T.solve_alt(p, m_max=3, t_phi=3, device="cpu")
-    got = T.solve_alt(p, m_max=3, t_phi=3, block_apps=0, device="cpu")
-    assert got.J == ref.J and got.iters == ref.iters
-    assert torch.equal(got.state.hosts(), ref.state.hosts())
+    got = T.placement_update(st, s0, aux["ctg"])
+    assert bool((got.hosts() != s0.hosts()).any())
+    for lane in range(4):
+        jl = jax.tree_util.tree_map(lambda v: v[lane], js)
+        s_lane = T.State(x=s0.x[lane], phi=s0.phi[lane])
+        want = J.blocked_placement_update(jl, to_jax_state(s_lane), block_apps=bk)
+        _assert_hosts_or_tie(st, got, lane, jl, want)
 
 
 # ---------------------------------------------------------------------------
