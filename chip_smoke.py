@@ -25,7 +25,9 @@ phases, each printing JSON lines:
      S = 2048, the seamless encoder, cross attention at Sq = 16 and 1
      against 1024 frames, qwen2-moe's D = 128; the placement sweep's hosts
      bitwise; the forwarding sweep's phi at the benchmark cells' shapes,
-     bitwise off the minimum-marginal column and 1e-6 + 1e-5 |phi| on it),
+     bitwise off the minimum-marginal column and 1e-6 + 1e-5 |phi| on it;
+     the cost-to-go's two contractions of phi, the link loads and the link
+     term, at the same shapes within 1e-6 + 1e-5 times their terms' sum),
      with CUDA-event times, the plain version's time, a PyTorch-call
      yardstick (for Neumann the dense LU solve), and the card's bound;
      each flash row names its variant (wgmma or cuda_core), each argmin
@@ -665,9 +667,44 @@ def phase1(scen, build, stacked256, fleet_problems, pareto_chunk, warm_mm):
         }, headline)
         del args
         torch.cuda.empty_cache()
+    phi_contract_rows(keep, bound)
     build.reset_launches()
     emit({"phase": 1, "name": "kernels_vs_plain", "rows": rows})
     return summary
+
+
+def phi_contract_rows(keep, bound) -> None:
+    """cost_to_go's two contractions of phi: each kernel against its plain
+    version on the same CUDA tensors at the benchmark cells' shapes (fleet64,
+    tier256 the headline, backbone1024), within 1e-6 + 1e-5 times the sum of
+    the absolute terms (every term is >= 0 here, so the plain output itself);
+    bound: phi read once. `keep` and `bound` as phase 1's."""
+    import torch
+    from repro_torch.kernels.forwarding import ops as fw_ops
+    from repro_torch.kernels.phi_contract import ops as pc_ops, ref as pc_ref
+
+    for (nb, na, nk, v), headline in (((1024, 24, 3, 64), False), ((16, 128, 3, 256), True),
+                                      ((1, 256, 3, 1024), False)):
+        phi, t, dp, L, adj, _, _ = forwarding_operands(nb, na, nk, v, seed=v)
+        dp = torch.where(adj > 0, dp, 0.0)
+        for name, kernel, plain, vec in (("phi_loads", pc_ops.phi_loads, pc_ref.phi_loads_ref, t),
+                                         ("phi_link_term", pc_ops.phi_link_term, pc_ref.phi_link_term_ref, dp)):
+            got, want = kernel(phi, vec, L), plain(phi, vec, L)
+            err = (got - want).abs()
+            if not bool((err <= 1e-6 + 1e-5 * want).all()):
+                raise AssertionError(f"{name} V={v}: off by {(err - 1e-5 * want).max().item()} past its tolerance")
+            keep(name, {
+                "kernel": name, "shape": f"B={nb} A={na} K={nk} V={v}",
+                "variant": f"vec{4 if v % 4 == 0 else 1}" if name == "phi_loads"
+                else fw_ops._variant(*fw_ops._geometry(v)[::2]),
+                "max_abs_err": err.max().item(),
+                "ms": cuda_ms(lambda: kernel(phi, vec, L), 20),
+                "plain_ms": cuda_ms(lambda: plain(phi, vec, L), 3, 1),
+                **bound(phi.numel() * 4, 0), "library_ms": None,
+            }, headline)
+            del got, want, err
+        del phi, t, dp, L, adj
+        torch.cuda.empty_cache()
 
 
 def forwarding_operands(b, a, k, v, seed):
@@ -970,7 +1007,8 @@ def phase3(core, pad, counter, stacked, lane0):
     split["profile"] = profile(
         one_round, {"neumann_rows": ("neumann_rows_kernel",), "neumann_cols": ("neumann_cols_kernel",),
                     "minplus": ("minplus_tile_kernel",), "minplus_argmin": ("minplus_argmin",),
-                    "forwarding_sweep": ("forwarding_sweep",)},
+                    "forwarding_sweep": ("forwarding_sweep",), "phi_loads": ("phi_loads",),
+                    "phi_link_term": ("phi_link_term",)},
         sum(split.values())
     )
     emit({
@@ -3641,6 +3679,7 @@ def run_phases(torch, matrix) -> int:
         "flash": "src/repro_torch/csrc/flash_attention.cu",
         "placement": "src/repro_torch/csrc/placement.cu",
         "forwarding": "src/repro_torch/csrc/forwarding.cu",
+        "phi": "src/repro_torch/csrc/phi_contract.cu",
     }
     replaces = {
         "neumann_cols": "src/repro/kernels/neumann/kernel.py:52",
@@ -3650,6 +3689,8 @@ def run_phases(torch, matrix) -> int:
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:39",
         "placement_sweep": "no Pallas kernel: src/repro/core/placement.py:103, a lax.scan over apps",
         "forwarding_sweep": "no Pallas kernel: src/repro/core/forwarding.py, jnp over [B, A, K, V, V]",
+        "phi_loads": "no Pallas kernel: src/repro/core/flow.py loads, jnp over [B, A, K, V, V]",
+        "phi_link_term": "no Pallas kernel: src/repro/core/marginals.py cost_to_go, jnp over [B, A, K, V, V]",
     }
     kernels = []
     for name, launches in counter.total.items():

@@ -19,6 +19,7 @@ import torch
 
 from . import costs
 from ..kernels.neumann import effective_hops, neumann_solve
+from ..kernels.phi_contract import ops as phi_contract
 from .structs import BIG, Apps, Problem, State, bview, one_hot, partition_live_mask
 
 SOLVERS = ("neumann", "lu")
@@ -88,6 +89,7 @@ def stage_traffic(problem: Problem, state: State, *, solver: str = "neumann") ->
 def loads(problem: Problem, state: State, t: torch.Tensor | None = None):
     """Link load F [B, V, V] (Eq. 5) and node computation load G [B, V] (Eq. 6).
 
+    F is one `phi_loads` contraction (one kernel launch on the card).
     Stages and partitions are accumulated sequentially, one fixed-shape
     contraction per step, so the real prefix's float associativity does not
     depend on the K envelope (appended phantom stages are exact-zero
@@ -96,10 +98,7 @@ def loads(problem: Problem, state: State, t: torch.Tensor | None = None):
         t = stage_traffic(problem, state)
     apps = problem.apps
     n = state.phi.shape[-1]
-    F = torch.zeros(t.shape[:-3] + (n, n), dtype=t.dtype, device=t.device)
-    for k in range(state.phi.shape[-3]):
-        f_k = t[..., k, :, None] * state.phi[..., k, :, :]  # [B, A, V, V] (Eq. 4)
-        F = F + torch.einsum("ba,baij->bij", apps.L[..., k], f_k)
+    F = phi_contract.phi_loads(state.phi, t, apps.L)
     G = torch.zeros(t.shape[:-3] + (n,), dtype=t.dtype, device=t.device)
     for p in range(apps.w.shape[-1]):
         G = G + torch.einsum("ba,bav->bv", apps.w[..., p], state.x[..., p, :] * t[..., p, :])

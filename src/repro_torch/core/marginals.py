@@ -31,6 +31,7 @@ from .flow import (
     stage_traffic,
 )
 from ..kernels.forwarding import ref as sweep_ref
+from ..kernels.phi_contract import ops as phi_contract
 from .structs import Problem, State, partition_live_mask
 
 
@@ -58,14 +59,13 @@ def cost_to_go(
     gates = torch.cat([state.x * live, zeros_tail], dim=-2)  # [B, A, K, V]
     kappas = torch.cat([kappa * live, zeros_tail], dim=-2)  # [B, A, K, V]
 
+    link_terms = phi_contract.phi_link_term(state.phi, dp_edges, L)  # [B, A, K, V], every stage
     n_stages = state.phi.shape[-3]
     q_next = torch.zeros_like(gates[..., 0, :])
     qs = [None] * n_stages
     for k in reversed(range(n_stages)):
-        phi_k = state.phi[..., k, :, :]
-        link_term = L[..., k, None] * (phi_k * dp_edges[:, None]).sum(dim=-1)
-        c = link_term + gates[..., k, :] * (kappas[..., k, :] + q_next)
-        q_next = stage_solve(phi_k, c, problem, transpose=False, solver=solver)
+        c = link_terms[..., k, :] + gates[..., k, :] * (kappas[..., k, :] + q_next)
+        q_next = stage_solve(state.phi[..., k, :, :], c, problem, transpose=False, solver=solver)
         qs[k] = q_next
     q = torch.stack(qs, dim=-2)  # [B, A, K, V]
     return q, dp, kappa, t, F, G

@@ -15,6 +15,10 @@
            one forwarding sweep's update of phi, each row's marginals,
            minimum, decay and reassignment in a warp's registers
            (csrc/forwarding.cu)
+  phi_contract
+           the cost-to-go's two contractions of phi, the link loads F and
+           the link term, each one launch reading phi once
+           (csrc/phi_contract.cu)
 
 Each package ships ops.py (wrapper: CUDA tensor -> kernel, CPU tensor ->
 plain version) and ref.py (the plain PyTorch versions). `_build` compiles

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("neumann", "minplus", "flash_attention", "placement", "forwarding")
+SOURCES = ("neumann", "minplus", "flash_attention", "placement", "forwarding", "phi_contract")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -35,18 +35,20 @@ NVCC_FLAGS = (
 # that have more than one (flash_attention: "wgmma" | "cuda_core";
 # neumann_rows, neumann_cols: "c<C>_resident" | "c<C>_streamed";
 # minplus_argmin: "s<S>_u8" | "s<S>_u32", S splits of K, byte or word chunk
-# ids; forwarding_sweep: "s<G>_w<N>_resident" | "streamed", a row on G
-# lanes of N values each). Each
+# ids; forwarding_sweep and phi_link_term: "s<G>_w<N>_resident" |
+# "streamed", a row on G lanes of N values each; phi_loads: "vec4" |
+# "vec1", the columns a thread owns). Each
 # wrapper calls `count` where it launches its kernel and nowhere else, so a
 # run can show that its main path went through the kernels (chip_smoke.py
 # resets and reads these).
 LAUNCHES = {
     "neumann_cols": 0, "neumann_rows": 0, "minplus": 0, "minplus_argmin": 0,
-    "flash_attention": 0, "placement_sweep": 0, "forwarding_sweep": 0,
+    "flash_attention": 0, "placement_sweep": 0, "forwarding_sweep": 0, "phi_loads": 0,
+    "phi_link_term": 0,
 }
 VARIANT_LAUNCHES: dict[str, dict[str, int]] = {
     "neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {},
-    "forwarding_sweep": {},
+    "forwarding_sweep": {}, "phi_loads": {}, "phi_link_term": {},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.forwarding import ops as fw_ops
 from repro_torch.kernels.minplus import ops as mp_ops
 from repro_torch.kernels.neumann import ops as ne_ops
+from repro_torch.kernels.phi_contract import ops as pc_ops
 from repro_torch.kernels.placement import ops as pl_ops
 from repro_torch import chaos
 from repro_torch.distributed import pipeline_apply
@@ -428,6 +429,42 @@ def test_forwarding_sweep_wrapper_raises_instead_of_plain_on_cuda(monkeypatch):
                                     mass=torch.zeros(1, 1, 1, 30000)))
 
 
+@pytest.mark.parametrize("fn", ["phi_loads", "phi_link_term"])
+def test_phi_contract_wrappers_raise_instead_of_plain_on_cuda(fn, monkeypatch):
+    """CUDA operands reach the contraction kernels' launch (which raises
+    without a card) and never the plain versions, with or without a
+    gradient to take; dtypes, shapes and devices they cannot take raise
+    first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pc_ops, "phi_loads_ref", _no_plain)
+    monkeypatch.setattr(pc_ops, "phi_link_term_ref", _no_plain)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    b, a, k, v = 2, 3, 3, 40
+    other = "t" if fn == "phi_loads" else "dp"
+    call = getattr(pc_ops, fn)
+
+    def operands(**swap):
+        shapes = {"phi": (b, a, k, v, v), other: (b, a, k, v) if other == "t" else (b, v, v), "L": (b, a, k)}
+        ts = {n: torch.zeros(s) for n, s in shapes.items()}
+        ts.update(swap)
+        return [t if isinstance(t, _FakeCuda) else _FakeCuda(t) for t in (ts[n] for n in shapes)]
+
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        call(*operands())
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        with torch.enable_grad():
+            call(*operands(L=torch.zeros(b, a, k, requires_grad=True)))
+    with pytest.raises(TypeError, match="float32"):
+        call(*operands(L=torch.zeros(b, a, k, dtype=torch.float64)))
+    with pytest.raises(ValueError, match=other):
+        call(*operands(**{other: torch.zeros(b, v, v + 1)}))
+    with pytest.raises(ValueError, match="phi"):
+        call(*operands(phi=torch.zeros(b, a, k, v)))
+    with pytest.raises(ValueError, match="device"):
+        away = torch.zeros(b, a, k)
+        call(*operands(L=away)[:-1], away)
+
+
 @pytest.mark.parametrize("v", [1, 31, 32, 33, 64, 256, 1024, 1025, 5000])
 def test_forwarding_sweep_geometry(v):
     """Up to 1,024 nodes a row lies in registers on the fewest lanes (4 to
@@ -449,7 +486,7 @@ def test_forwarding_sweep_geometry(v):
 
 def test_launch_counts_by_variant(monkeypatch):
     empty = {"neumann_cols": {}, "neumann_rows": {}, "minplus_argmin": {}, "flash_attention": {},
-             "forwarding_sweep": {}}
+             "forwarding_sweep": {}, "phi_loads": {}, "phi_link_term": {}}
     assert _build.VARIANT_LAUNCHES.keys() == empty.keys()
     monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
     monkeypatch.setattr(_build, "VARIANT_LAUNCHES", {k: {} for k in empty})
@@ -464,13 +501,19 @@ def test_launch_counts_by_variant(monkeypatch):
     _build.count("minplus_argmin", mp_ops._argmin_variant(2, False))
     _build.count("forwarding_sweep", fw_ops._variant(8, 8))
     _build.count("forwarding_sweep", fw_ops._variant(0, 32))
+    _build.count("phi_loads", "vec4")
+    _build.count("phi_loads", "vec1")
+    _build.count("phi_loads", "vec4")
+    _build.count("phi_link_term", fw_ops._variant(*fw_ops._geometry(256)[::2]))
     assert _build.LAUNCHES["flash_attention"] == 2 and _build.LAUNCHES["minplus"] == 1
     assert _build.LAUNCHES["forwarding_sweep"] == 2
+    assert _build.LAUNCHES["phi_loads"] == 3 and _build.LAUNCHES["phi_link_term"] == 1
     assert _build.LAUNCHES["neumann_cols"] == 2 and _build.LAUNCHES["minplus_argmin"] == 3
     assert _build.VARIANT_LAUNCHES == {
         "neumann_cols": {"c4_resident": 1, "c8_streamed": 1}, "neumann_rows": {"c4_resident": 1},
         "minplus_argmin": {"s2_u8": 2, "s1_u32": 1}, "flash_attention": {"wgmma": 2},
         "forwarding_sweep": {"s8_w8_resident": 1, "streamed": 1},
+        "phi_loads": {"vec4": 2, "vec1": 1}, "phi_link_term": {"s32_w8_resident": 1},
     }
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values()) and _build.VARIANT_LAUNCHES == empty
@@ -501,7 +544,7 @@ def test_argmin_wrapper_checks_its_split(monkeypatch):
 def test_build_key_tracks_sources():
     """Each CUDA source builds into its own hashed library under build/kernels."""
     paths = {n: _build._lib_path(n) for n in _build.SOURCES}
-    assert set(paths) == {"neumann", "minplus", "flash_attention", "placement", "forwarding"}
+    assert set(paths) == {"neumann", "minplus", "flash_attention", "placement", "forwarding", "phi_contract"}
     for n, p in paths.items():
         assert p.parent == ROOT / "build" / "kernels" and p.name.startswith(n + "-")
         assert (PORT / "csrc" / f"{n}.cu").exists()
