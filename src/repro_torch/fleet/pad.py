@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..core.structs import BIG, Apps, CostModel, Network, Problem
 from ..obs.sync import count_syncs
+from ..obs.trace import span
 
 # Compute rate of a padded (or dead) node: the marginal compute cost
 # C'(0) = 1/NU_PAD dominates any congested real marginal, while C(0) = 0
@@ -184,7 +185,9 @@ def stack_problems(
     `kind` may not). `envelope` / `hop_bound` / `n_parts` override the
     computed (V, A) envelope, the unified hop bound and the partition
     envelope: the chunked fleet path passes the global values so every
-    chunk runs at one shape."""
+    chunk runs at one shape. While tracing, the per-lane padding is one
+    `solve_fleet.pad` span whose `lanes_padded` counts the lanes whose
+    (V, A, P) differ from the envelope."""
     problems = list(problems)
     if not problems:
         raise EmptyFleetError("stack_problems: empty fleet")
@@ -197,7 +200,12 @@ def stack_problems(
     v, a = envelope if envelope is not None else fleet_envelope(problems, round_to=round_to)
     p_env = n_parts if n_parts is not None else fleet_part_envelope(problems)
     hb = hop_bound if hop_bound is not None else unify_hop_bound(problems)
-    padded, infos = zip(*(pad_problem(p, v, a, p_env) for p in problems))
+    with span("solve_fleet.pad") as rec:
+        padded, infos = zip(*(pad_problem(p, v, a, p_env) for p in problems))
+        if rec is not None:
+            rec["lanes_padded"] = sum(
+                (p.net.n_nodes, p.apps.n_apps, p.apps.n_parts) != (v, a, p_env) for p in problems
+            )
     dev = problems[0].device
 
     def stack(group, names):

@@ -16,8 +16,10 @@ sequential solve of the unpadded problem up to float32 rounding.
   * `trace=True` (default) carries the engine's round trace out as
     `FleetResult.trace`. Apart from it, while `obs.trace` is on, each call
     is one `solve_fleet.call` span, the root of its validate / stack /
-    execute / gather spans (and, inside execute, the engine's round and
-    phase spans), with the host syncs it made as `host_syncs`; the count
+    execute / gather spans (inside stack the per-lane `solve_fleet.pad`,
+    inside execute the engine's round and phase spans; stack records phi's
+    real and envelope entries as `real_cells` and `envelope_cells`), with
+    the host syncs it made as `host_syncs`; the count
     itself (`device.host_syncs`, obs/sync.py) and per-solve telemetry
     (chunks, pad overhead, rounds against budget) land in
     `obs.metrics.registry` either way. The JAX
@@ -344,10 +346,19 @@ def _run_chunk(problems, *, envelope, hop_bound, n_parts, round_to, mesh, batch_
             hop_bound = unify_hop_bound(problems)
             n_parts = fleet_part_envelope(problems)
         mine = problems[fleet_lanes(mesh, target)]
-    with span("solve_fleet.stack", batch=target, real=real):
+    with span("solve_fleet.stack", batch=target, real=real) as rec:
         stacked, info = stack_problems(
             mine, round_to=round_to, envelope=envelope, hop_bound=hop_bound, n_parts=n_parts,
         )
+        if rec is not None:
+            # phi's (app, stage, node, node) entries of the real lanes, and
+            # what the envelope holds for them: host integers from shapes.
+            _, a_env, k_env = stacked.apps.L.shape
+            v_env = stacked.net.n_nodes
+            rec["real_cells"] = sum(
+                p.apps.n_apps * (p.apps.n_parts + 1) * p.net.n_nodes ** 2 for p in problems[:real]
+            )
+            rec["envelope_cells"] = real * a_env * k_env * v_env ** 2
     init_state = active0 = None
     if warm is not None:
         w_state, w_active = warm
